@@ -1,0 +1,467 @@
+"""Culled ray/segment LiDAR scan: host side, plain torch version, CUDA kernel.
+
+Port of ``f1tenth_gym_tpu/ops/pallas_scan.py``: ``GROUP``,
+``build_seg_table`` (:128-165), ``select_windows`` (:410-468) and the host
+side of ``_scan_pallas`` (:492-667). The Pallas kernel ``_scan_kernel``
+becomes the hand-written CUDA C++ kernel ``csrc/scan_kernel.cu`` (see its
+header for the design and the bound on the H100).
+
+One call is three steps:
+
+* ``prepare`` flattens and pads the poses, computes the per-scan scalars
+  (ti0, inc, cos/sin(alpha)) and the cos/sin(n*beta) fan tables in f32 in
+  the order of pallas_scan.py:545-564, selects each 8-scan subgroup's
+  culled window (``select_windows``) and applies the eligibility gate of
+  erosion-fused packs (:595-615);
+* ``sweep`` runs the sweep on what ``prepare`` made: the CUDA kernel for
+  tensors on the card, the plain version ``sweep_plain`` for tensors on
+  the CPU (and only there: a CUDA tensor launches the kernel or raises);
+* ``scan`` chains the two and unpads.
+
+The kernel is built with ``nvcc`` at its first launch into
+``f1tenth_gym_tpu_torch/_build/`` and bound with ``ctypes``; importing this
+module builds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import shutil
+import subprocess
+from typing import Optional
+
+import numpy as np
+import torch
+
+from f1tenth_gym_tpu_torch.config import resolve_device
+from f1tenth_gym_tpu_torch.state import MapData, ScanTables
+
+TWO_PI = 2.0 * np.pi
+GROUP = 8   # segment rows per group (the pack's row format)
+SUB = 8     # scans per table-selection subgroup (one CUDA block row)
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CUDA_SRC = os.path.join(_PKG_DIR, "csrc", "scan_kernel.cu")
+CUDA_SO = os.path.join(_PKG_DIR, "_build", "scan_kernel.so")
+
+
+def build_seg_table(segments: np.ndarray) -> np.ndarray:
+    """(K, 4) [ax, ay, bx, by] -> (Kp, 8) f32 kernel table, built in f64.
+
+    Rows: [nx, ny, c, txn, tyn, -w0n, 0, 0] with n the UNIT normal (so
+    num = c - n.o is a signed distance in meters) and the tangent scaled by
+    1/|e|^2 so the along-segment hit parameter lies in [0, 1]. Padding and
+    degenerate rows get n = 0, c = 1 and -w0n = 10: they never match.
+    """
+    segs = np.asarray(segments, np.float64)
+    # drop the far-away padding rows up front: every row costs sweep time
+    segs = segs[segs[:, 0] < 1e6]
+    ax, ay, bx, by = segs.T
+    ex, ey = bx - ax, by - ay
+    len2 = ex * ex + ey * ey
+    ok = len2 > 0
+    len2 = np.where(ok, len2, 1.0)
+    ln = np.sqrt(len2)
+    nx, ny = -ey / ln, ex / ln
+    c = nx * ax + ny * ay
+    txn, tyn = ex / len2, ey / len2
+    w0n = (ax * ex + ay * ey) / len2
+    out = np.stack([nx, ny, c, txn, tyn, -w0n,
+                    np.zeros_like(c), np.zeros_like(c)], 1)
+    out[~ok] = 0.0
+    out[~ok, 2] = 1.0
+    out[~ok, 5] = 10.0
+    k = len(out)
+    kp = ((k + GROUP - 1) // GROUP) * GROUP
+    if kp > k:
+        pad = np.zeros((kp - k, 8))
+        pad[:, 2] = 1.0
+        pad[:, 5] = 10.0
+        out = np.concatenate([out, pad], 0)
+    return out.astype(np.float32)
+
+
+def select_windows(tig, tjg, blockmap, tile_ngroups, tile_ext, nx, ny,
+                   full_ng):
+    """Per-subgroup culled-window choice (pallas_scan.py:410-468).
+
+    tig/tjg: (nsub, SUB) int64 tile indices of each subgroup's scans.
+    Picks the tightest v9 window tier indexed by the subgroup's lower-left
+    tile: 1x1 when all its scans share a tile, 2x2 when they span <= 1
+    tile per axis, 4x4 for spread <= 3, 8x8 for spread <= 7, else the full
+    set (also on the blockmap sentinel -1).
+
+    Returns (bid, ng, est, ecnt): bid (nsub,) 0 = full table else 1 +
+    block; ng (nsub,) shared group count; est/ecnt (nsub, SUB) per-scan
+    extras start and count in group units.
+    """
+    T = blockmap.shape[0] // 4
+    ti_lo, ti_hi = tig.min(-1).values, tig.max(-1).values
+    tj_lo, tj_hi = tjg.min(-1).values, tjg.max(-1).values
+    in_grid = (ti_lo >= 0) & (tj_lo >= 0) & (ti_hi < nx) & (tj_hi < ny)
+    sx = ti_hi - ti_lo
+    sy = tj_hi - tj_lo
+    tidx = torch.clamp(tj_lo * nx + ti_lo, 0, T - 1)
+    blk2 = blockmap[tidx].long()
+    blk1 = blockmap[T + tidx].long()
+    blk4 = blockmap[2 * T + tidx].long()
+    blk8 = blockmap[3 * T + tidx].long()
+    use1 = in_grid & (sx == 0) & (sy == 0) & (blk1 >= 0)
+    use2 = in_grid & (sx <= 1) & (sy <= 1) & (blk2 >= 0) & ~use1
+    use4 = in_grid & (sx <= 3) & (sy <= 3) & (blk4 >= 0) & ~use1 & ~use2
+    use8 = (in_grid & (sx <= 7) & (sy <= 7) & (blk8 >= 0)
+            & ~use1 & ~use2 & ~use4)
+    none = torch.full_like(blk1, -1)
+    blk = torch.where(use1, blk1, torch.where(
+        use2, blk2, torch.where(use4, blk4, torch.where(use8, blk8, none))))
+    bid = torch.where(blk >= 0, 1 + blk, 0)
+    blk_c = torch.clamp(blk, min=0)
+    ng = torch.where(blk >= 0, tile_ngroups[1 + blk_c].long(), full_ng)
+    # per-scan member index within the selected window tier
+    w = torch.where(use1, 1, torch.where(use2, 2, torch.where(use4, 4, 8)))
+    m = (tjg - tj_lo[:, None]) * w[:, None] + (tig - ti_lo[:, None])
+    m = torch.clamp(m, 0, 63)
+    if tile_ext is None:     # pack has no split blocks: extras all empty
+        est = ecnt = torch.zeros_like(tig)
+    else:
+        packed = tile_ext[blk_c[:, None], m].long()
+        packed = torch.where(blk[:, None] >= 0, packed, 0)
+        est = packed // 256
+        ecnt = packed % 256
+    return bid, ng, est, ecnt
+
+
+@dataclasses.dataclass
+class SweepInputs:
+    """Everything the sweep reads, made by ``prepare``; n_pad % SUB == 0."""
+
+    scal: torch.Tensor   # (n_pad, 8) f32 [ox, oy, ti0, inc, ca, sa, maxr, 0]
+    fan: torch.Tensor    # (2, num_beams) f32 rows cos(n*beta), sin(n*beta)
+    full: torch.Tensor   # (Kf, 8) f32 full table
+    tabs: torch.Tensor   # (n_blocks, Kt, 8) f32 window blocks
+    bid: torch.Tensor    # (nsub,) i32: 0 = full table, else 1 + block
+    ng: torch.Tensor     # (nsub,) i32 shared group count
+    est: torch.Tensor    # (n_pad,) i32 extras start (groups)
+    ecnt: torch.Tensor   # (n_pad,) i32 extras count (groups)
+    has_extras: bool     # the pack has split blocks
+    inv_td: float        # f32(1 / theta_dis)
+    bin_to_rad: float    # f32(2 pi / (theta_dis - 1))
+
+    @property
+    def num_beams(self) -> int:
+        return self.fan.shape[1]
+
+    def swept_rows(self) -> torch.Tensor:
+        """(n_pad,) table rows each scan sweeps with this selection."""
+        shared = self.ng.long().repeat_interleave(SUB)
+        extra = self.ecnt.long() if self.has_extras else 0
+        return (shared + extra) * GROUP
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def prepare(pose: torch.Tensor, seg_table: torch.Tensor, tables: ScanTables,
+            num_beams: int, theta_dis: int,
+            tile_tables: Optional[torch.Tensor] = None,
+            tile_ngroups: Optional[torch.Tensor] = None,
+            tile_meta: Optional[torch.Tensor] = None,
+            tile_meta_host=None,
+            tile_blockmap: Optional[torch.Tensor] = None,
+            tile_ext: Optional[torch.Tensor] = None,
+            elig_raster: Optional[torch.Tensor] = None,
+            elig_meta: Optional[torch.Tensor] = None) -> SweepInputs:
+    """Host side of _scan_pallas (pallas_scan.py:530-621) for (n, 3) poses."""
+    f32 = torch.float32
+    dev = pose.device
+    p = pose.reshape(-1, 3).to(f32)
+    n = p.shape[0]
+    n_pad = ((n + SUB - 1) // SUB) * SUB
+    if n_pad > n:
+        p = torch.cat([p, p[-1:].expand(n_pad - n, 3)], 0)
+
+    fov = tables.fov.to(f32)
+    angle_inc = fov / (num_beams - 1)
+    theta = p[:, 2]
+    ti0 = theta_dis * (theta - fov / 2.0) / torch.tensor(TWO_PI, dtype=f32)
+    ti0 = torch.remainder(torch.remainder(ti0, theta_dis) + theta_dis,
+                          theta_dis)
+    # Python floats and CPU scalars enter the ops as scalars: no copy to
+    # the card, so the host never waits for it here
+    bin_to_rad = _f32(TWO_PI / (theta_dis - 1))
+    inc_val = torch.tensor(theta_dis, dtype=f32) * angle_inc \
+        / torch.tensor(TWO_PI, dtype=f32)
+    alpha = ti0 * bin_to_rad
+    beta = inc_val * bin_to_rad
+    n_idx = torch.arange(num_beams, dtype=f32, device=dev)
+    fan = torch.stack([torch.cos(n_idx * beta), torch.sin(n_idx * beta)])
+    zeros = torch.zeros_like(ti0)
+    scal = torch.stack(
+        [p[:, 0], p[:, 1], ti0, inc_val.expand(n_pad), torch.cos(alpha),
+         torch.sin(alpha), tables.max_range.to(f32).expand(n_pad), zeros],
+        -1).contiguous()
+
+    nsub = n_pad // SUB
+    Kf = seg_table.shape[0]
+    if tile_tables is None:
+        tabs = torch.zeros((1, GROUP, 8), dtype=f32, device=dev)
+        tabs[:, :, 2] = 1.0   # never-matching rows (see build_seg_table)
+        tabs[:, :, 5] = 10.0
+        bid = torch.zeros(nsub, dtype=torch.long, device=dev)
+        ng = torch.full((nsub,), Kf // GROUP, dtype=torch.long, device=dev)
+        est = ecnt = torch.zeros(n_pad, dtype=torch.long, device=dev)
+    else:
+        if tile_blockmap is None or tile_meta_host is None:
+            raise ValueError("v9 tile tables need tile_blockmap and "
+                             "tile_meta_host alongside tile_tables")
+        tabs = tile_tables
+        x0, y0, inv_ts = tile_meta[0], tile_meta[1], tile_meta[2]
+        nx, ny = int(tile_meta_host[3]), int(tile_meta_host[4])
+        ti = torch.floor((p[:, 0] - x0) * inv_ts).long()
+        tj = torch.floor((p[:, 1] - y0) * inv_ts).long()
+        bid, ng, est, ecnt = select_windows(
+            ti.view(nsub, SUB), tj.view(nsub, SUB), tile_blockmap,
+            tile_ngroups, tile_ext, nx, ny, Kf // GROUP)
+        if elig_raster is not None:
+            # erosion-gated pack: the culled tables are only proven for
+            # scan origins on eligible cells; a subgroup with any other
+            # scan sweeps the full table, so culled == full for every pose
+            ex = torch.floor((p[:, 0] - elig_meta[0]) / elig_meta[2]).long()
+            ey = torch.floor((p[:, 1] - elig_meta[1]) / elig_meta[2]).long()
+            Hm, Wm = elig_raster.shape
+            inb = (ex >= 0) & (ex < Wm) & (ey >= 0) & (ey < Hm)
+            ok = inb & (elig_raster[torch.clamp(ey, 0, Hm - 1),
+                                    torch.clamp(ex, 0, Wm - 1)] > 0)
+            ok_sub = ok.view(nsub, SUB).all(-1)
+            bid = torch.where(ok_sub, bid, 0)
+            ng = torch.where(ok_sub, ng, Kf // GROUP)
+            est = torch.where(ok_sub[:, None], est, 0)
+            ecnt = torch.where(ok_sub[:, None], ecnt, 0)
+        est = est.reshape(-1)
+        ecnt = ecnt.reshape(-1)
+    i32 = torch.int32
+    return SweepInputs(
+        scal=scal, fan=fan.contiguous(), full=seg_table.to(f32).contiguous(),
+        tabs=tabs.contiguous(), bid=bid.to(i32), ng=ng.to(i32),
+        est=est.to(i32), ecnt=ecnt.to(i32), has_extras=tile_ext is not None,
+        inv_td=_f32(1.0 / theta_dis), bin_to_rad=bin_to_rad)
+
+
+# --------------------------------------------------------------------------
+# plain torch version (the kernel's reference, and the CPU path)
+# --------------------------------------------------------------------------
+
+def _beam_dirs(w: SweepInputs):
+    """(n_pad, B) beam directions, pallas_scan.py:238-250 operation order."""
+    ti0, inc, ca, sa = (w.scal[:, i:i + 1] for i in (2, 3, 4, 5))
+    beam = torch.arange(w.num_beams, dtype=torch.float32,
+                        device=w.scal.device)
+    cnb, snb = w.fan[0], w.fan[1]
+    t = ti0 + beam * inc
+    k = torch.floor(t * w.inv_td)
+    g = (t - torch.floor(t) + k) * w.bin_to_rad
+    cg = 1.0 - 0.5 * g * g
+    cos_t = ca * cnb - sa * snb
+    sin_t = sa * cnb + ca * snb
+    return cos_t * cg + sin_t * g, sin_t * cg - cos_t * g
+
+
+def _accumulate(acc, rows, valid, ox, oy, dx, dy):
+    """acc (n, B) = max(acc, max over rows (n, R, 8) where valid (n, R))."""
+    nx, ny, c, tx, ty, wn = (rows[..., i] for i in range(6))
+    num = c - ox * nx - oy * ny
+    num = torch.where(torch.abs(num) < 1e-12, 1e-12, num)
+    inv = 1.0 / num
+    uo = ox * tx + oy * ty + wn
+    dxe, dye = dx[:, :, None], dy[:, :, None]
+    den = nx[:, None, :] * dxe + ny[:, None, :] * dye
+    s = den * inv[:, None, :]
+    ud = tx[:, None, :] * dxe + ty[:, None, :] * dye
+    b = uo[:, None, :] * s + ud
+    q = torch.minimum(b, s - b)
+    sc = torch.where((q >= 0) & valid[:, None, :], s, 0.0)
+    return torch.maximum(acc, sc.amax(-1))
+
+
+def sweep_plain(w: SweepInputs) -> torch.Tensor:
+    """The kernel's computation in torch ops: (n_pad, B) ranges.
+
+    Each subgroup's table is gathered from the selected block (or the full
+    table), masked to its ``ng`` groups, then each scan's extras range;
+    rows are taken in chunks so the (scan, beam, row) temporaries stay
+    bounded.
+    """
+    n_pad, B = w.scal.shape[0], w.num_beams
+    dev = w.scal.device
+    dx, dy = _beam_dirs(w)
+    ox, oy = w.scal[:, 0:1], w.scal[:, 1:2]
+    acc = torch.zeros((n_pad, B), dtype=torch.float32, device=dev)
+    sub_of = torch.arange(n_pad, device=dev) // SUB
+    bid = w.bid.long()[sub_of]
+    blk = torch.clamp(bid - 1, min=0)
+    Kf, Kt = w.full.shape[0], w.tabs.shape[1]
+    chunk = max(GROUP, (1 << 24) // max(1, n_pad * B) // GROUP * GROUP)
+
+    def gather(r):  # r (n_pad, R) row indices -> (n_pad, R, 8)
+        from_full = w.full[torch.clamp(r, max=Kf - 1)]
+        from_tab = w.tabs[blk[:, None], torch.clamp(r, max=Kt - 1)]
+        return torch.where((bid == 0)[:, None, None], from_full, from_tab)
+
+    shared_rows = (w.ng.long() * GROUP)[sub_of]
+    for r0 in range(0, int(shared_rows.max()), chunk):
+        r = torch.arange(r0, r0 + chunk, device=dev).expand(n_pad, chunk)
+        acc = _accumulate(acc, gather(r), r < shared_rows[:, None],
+                          ox, oy, dx, dy)
+    if w.has_extras:
+        e0 = w.est.long() * GROUP
+        en = w.ecnt.long() * GROUP
+        for r0 in range(0, int(en.max()), chunk):
+            off = torch.arange(r0, r0 + chunk, device=dev).expand(n_pad, chunk)
+            acc = _accumulate(acc, gather(e0[:, None] + off),
+                              off < en[:, None], ox, oy, dx, dy)
+    return torch.minimum(1.0 / torch.clamp(acc, min=1e-9), w.scal[:, 6:7])
+
+
+# --------------------------------------------------------------------------
+# CUDA kernel: build, bind, launch
+# --------------------------------------------------------------------------
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", os.path.join("/usr", "local", "cuda"))
+    return os.path.join(home, "bin", "nvcc")
+
+
+def build_cuda() -> str:
+    """Compile ``csrc/scan_kernel.cu`` for sm_90a into ``_build/``.
+
+    Returns the compiler's resource report (``-Xptxas -v``); raises
+    ``RuntimeError`` with its output when the build fails."""
+    os.makedirs(os.path.dirname(CUDA_SO), exist_ok=True)
+    tmp = f"{CUDA_SO}.tmp{os.getpid()}"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+           "-Xcompiler", "-fPIC", "-o", tmp, CUDA_SRC]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, CUDA_SO)
+    return proc.stdout + proc.stderr
+
+
+def _load_cuda():
+    global _LIB
+    if _LIB is None:
+        if (not os.path.exists(CUDA_SO)
+                or os.path.getmtime(CUDA_SO) < os.path.getmtime(CUDA_SRC)):
+            build_cuda()
+        lib = ctypes.CDLL(CUDA_SO)
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.scan_sweep.argtypes = [vp, vp, vp, vp, ci, vp, vp, vp, vp, ci,
+                                   vp, ci, ci, cf, cf, vp]
+        lib.scan_sweep.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def _check_cuda_inputs(w: SweepInputs):
+    dev = w.scal.device
+    spec = [("scal", torch.float32), ("fan", torch.float32),
+            ("full", torch.float32), ("tabs", torch.float32),
+            ("bid", torch.int32), ("ng", torch.int32),
+            ("est", torch.int32), ("ecnt", torch.int32)]
+    for name, dtype in spec:
+        t = getattr(w, name)
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"scan kernel input {name}: need a contiguous "
+                             f"{dtype} tensor on {dev}, got {t.dtype} on "
+                             f"{t.device}")
+    for name in ("full", "tabs"):
+        if getattr(w, name).data_ptr() % 16:
+            raise ValueError(f"scan kernel input {name} is not 16-byte aligned")
+    n_pad = w.scal.shape[0]
+    if (n_pad % SUB or w.scal.shape[1] != 8 or w.bid.shape[0] != n_pad // SUB
+            or w.est.shape[0] != n_pad or w.full.shape[1] != 8
+            or w.tabs.shape[2] != 8):
+        raise ValueError("scan kernel inputs have inconsistent shapes")
+
+
+def _sweep_cuda(w: SweepInputs) -> torch.Tensor:
+    _check_cuda_inputs(w)
+    lib = _load_cuda()
+    n_pad, B = w.scal.shape[0], w.num_beams
+    out = torch.empty((n_pad, B), dtype=torch.float32, device=w.scal.device)
+    stream = torch.cuda.current_stream(w.scal.device).cuda_stream
+    err = lib.scan_sweep(
+        w.scal.data_ptr(), w.fan.data_ptr(), w.full.data_ptr(),
+        w.tabs.data_ptr(), w.tabs.shape[1], w.bid.data_ptr(),
+        w.ng.data_ptr(), w.est.data_ptr(), w.ecnt.data_ptr(),
+        int(w.has_extras), out.data_ptr(), n_pad // SUB, B, w.inv_td,
+        w.bin_to_rad, stream)
+    if err != 0:
+        raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
+    sweep.launches += 1
+    return out
+
+
+def sweep(w: SweepInputs) -> torch.Tensor:
+    """The sweep on ``w``'s device: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. ``sweep.launches`` counts kernel
+    launches."""
+    if w.scal.device.type == "cuda":
+        return _sweep_cuda(w)
+    if w.scal.device.type == "cpu":
+        return sweep_plain(w)
+    raise ValueError(f"no scan kernel for device {w.scal.device}")
+
+
+sweep.launches = 0
+
+
+def elig_meta(m: MapData) -> torch.Tensor:
+    """[orig_x, orig_y, resolution] in f32: the eligibility raster's grid."""
+    return torch.stack([m.orig_x, m.orig_y, m.resolution]).to(torch.float32)
+
+
+def prepare_map(pose: torch.Tensor, m: MapData, tables: ScanTables,
+                num_beams: int, theta_dis: int,
+                culled: bool = True) -> SweepInputs:
+    """``prepare`` with the tables of ``m`` (its culled pack when
+    ``culled`` and present, else the full table only)."""
+    if m.seg_table is None:
+        raise ValueError("the kernel scan needs MapData.seg_table: load the "
+                         "map with extract_segments=True")
+    kw = {}
+    if culled and m.tile_tables is not None:
+        kw = dict(tile_tables=m.tile_tables, tile_ngroups=m.tile_ngroups,
+                  tile_meta=m.tile_meta, tile_meta_host=m.tile_meta_host,
+                  tile_blockmap=m.tile_blockmap, tile_ext=m.tile_ext)
+        if m.cull_eligible is not None:
+            kw.update(elig_raster=m.cull_eligible, elig_meta=elig_meta(m))
+    return prepare(pose, m.seg_table, tables, num_beams, theta_dis, **kw)
+
+
+def scan(pose: torch.Tensor, m: MapData, tables: ScanTables, num_beams: int,
+         theta_dis: int, culled: bool = True, device=None) -> torch.Tensor:
+    """Batched LiDAR scan: pose (..., 3) -> ranges (..., num_beams).
+
+    ``device`` (default: the card) must be the map's device; the poses are
+    moved there. ``culled=False`` sweeps the full table for every scan.
+    """
+    dev = resolve_device(device)
+    if m.device != dev:
+        raise ValueError(f"map tensors are on {m.device}, scan asked for {dev}")
+    batch_shape = pose.shape[:-1]
+    flat = pose.to(dev).reshape(-1, 3)
+    n = flat.shape[0]
+    out = sweep(prepare_map(flat, m, tables, num_beams, theta_dis, culled))
+    return out[:n].reshape(*batch_shape, num_beams).to(pose.dtype)
