@@ -4,8 +4,8 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. build   — the CUDA scan kernel (nvcc, sm_90a) and the native host
-             library (g++), started together;
+1. build   — the CUDA scan and overlay kernels (nvcc, sm_90a) and the
+             native host library (g++), all started together;
 2. maps    — example_map culled at 1.25 m tiles, berlin and stata_basement
              culled at the default 2.5 m, compact with a split pack;
 3. kernel  — the scan kernel against its plain torch version on 8192 bench
@@ -15,16 +15,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              beams that leak through a wall vertex: over eight seeds every
              differing beam must be such a leak, and they may be at most
              1e-6 of the beams;
-4. gates   — kernel vs marching engine MSE < 2.0 on the three maps
+4. overlay — the overlay kernel's path, ``overlay_opponents`` on the 8192
+             bench scans, each clipped by the other agent's box (O = 1),
+             one launch; then the kernel against its plain torch version
+             bit for bit there and on a fuzz ensemble of 4096 scans with
+             three opponents each, against the racing step's
+             ``ray_cast_opponents`` within 2e-3 m except on at most 1e-6
+             of the beams, each at the edge of its blocked-view window
+             (a beam grazing a box corner), and its CUDA-event times
+             beside the bound;
+5. gates   — kernel vs marching engine MSE < 2.0 on the three maps
              (32 poses each, over the beams whose march stays inside the
              map raster; the all-beam MSE is printed beside it), the iTTC
              and the SAT collision spot checks;
-5. main    — the bench racing step: 4096 envs x 2 agents x 1080 beams,
+6. segments — the segments engine vs the march, MSE < 2.0 on example_map
+             and berlin over the same beams, and a batch step with it;
+7. scan_sim — ScanSimulator2D: the kernel engine with its culled pack
+             equals the kernel scan bit for bit on the 8192 bench poses,
+             and its segments engine passes the MSE bar against its march;
+8. main    — the bench racing step: 4096 envs x 2 agents x 1080 beams,
              auto-reset to each env's start grid, gap-follow policy,
              locality re-sort every 16 steps; 16 warm-up + 256 timed steps;
-             one kernel launch per step;
-6. timing  — CUDA-event times of the kernel (culled and full) and of the
-             plain version at the main path's shapes, beside the bound.
+             one scan-kernel launch per step, no overlay launch;
+9. timing  — CUDA-event times of the scan kernel (culled and full) and of
+             the plain version at the main path's shapes, beside the bound;
+10. f110env — the reference-compatible F110Env on the card ("auto", so the
+             scan kernel): reset, 200 gap-follow steps with one kernel
+             launch each, steps per second; then a few steps with the
+             segments engine.
 
 Then the ``kernels`` line, the card's name and power limit, and the result
 line. Exits non-zero without a result when no CUDA device is present.
@@ -36,15 +54,24 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3
 HIT_OPS = 14                # operations per (beam, row) hit test
+# overlay operations per in-window (beam, edge) pair: den (3), s (1),
+# b (5), s - b (1), two compares (2), max (1)
+PAIR_OPS = 13
 ENVS, AGENTS, BEAMS, THETA_DIS = 4096, 2, 1080, 2000
 WARMUP, STEPS, SORT_PERIOD = 16, 256, 16
 LEAK_SEEDS = range(8, 16)   # bench-pose seeds swept on the split pack
 LEAK_CAP = 1e-6             # vertex-leak beams allowed, share of beams swept
+FUZZ_SCANS, FUZZ_OPPONENTS = 4096, 3
+OVERLAY_ATOL = 2e-3         # overlay kernel vs ray_cast_opponents, metres
+OVERLAY_CAP = 1e-6          # beams allowed beyond it, share of beams
+SEG_ENVS, SEG_STEPS = 64, 4
+ENV_STEPS = 200             # F110Env gap-follow steps
 
 
 def emit(phase, **kw):
@@ -119,6 +146,202 @@ def main_path(m, tables, poses):
     return states, drive
 
 
+def cuda_ms(fn, iters):
+    """Mean CUDA-event time of ``fn`` over ``iters`` calls, after three
+    warm-up calls."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def other_agent_boxes(poses, params):
+    """(E, 2, 3) poses -> (E, 2, 1, 4, 2): each agent's one opponent is
+    the other agent's box (tools/step_probe.py:93-103)."""
+    from f1tenth_gym_tpu_torch.ops import collision as col_ops
+
+    verts = col_ops.get_vertices(poses, params.length, params.width)
+    return verts.flip(1)[:, :, None]
+
+
+def fuzz_overlay_inputs(n, O, params, dev, seed=0):
+    """Scans, scan poses and opponent boxes 0.5-12 m away in every
+    direction, drawn like tests/test_pallas_scan.py:123-138 (on the host,
+    from ``seed``)."""
+    from f1tenth_gym_tpu_torch.ops import collision as col_ops
+
+    rng = np.random.default_rng(seed)
+    poses = np.stack([rng.uniform(-6, 6, n), rng.uniform(-6, 6, n),
+                      rng.uniform(0, 2 * np.pi, n)], axis=1)
+    ang = rng.uniform(0, 2 * np.pi, (n, O))
+    dist = rng.uniform(0.5, 12.0, (n, O))
+    opp = np.stack([poses[:, None, 0] + dist * np.cos(ang),
+                    poses[:, None, 1] + dist * np.sin(ang),
+                    rng.uniform(0, 2 * np.pi, (n, O))], axis=-1)
+    scans = rng.uniform(2.0, 30.0, (n, BEAMS))
+
+    def dev_f32(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    verts = col_ops.get_vertices(dev_f32(opp), params.length, params.width)
+    return dev_f32(scans), dev_f32(poses), verts
+
+
+def overlay_phase(bench_scans, bench_poses, tables, params):
+    """The overlay kernel's path and checks at the probe's shape (module
+    docstring, phase 4). Returns the kernel's entry of the kernels line."""
+    from f1tenth_gym_tpu_torch.ops import collision as col_ops
+    from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
+
+    dev = bench_scans.device
+    scans = bench_scans.reshape(ENVS, AGENTS, BEAMS)
+    opp = other_agent_boxes(bench_poses, params)
+
+    # the path: one call of the entry point a user makes, counted
+    ok.overlay.launches = 0
+    out = ok.overlay_opponents(scans, bench_poses, opp, tables, BEAMS,
+                               device=dev)
+    torch.cuda.synchronize()
+    launches = ok.overlay.launches
+    require(launches == 1, f"overlay_opponents made {launches} launches")
+    require(bool(torch.isfinite(out).all()), "overlay: non-finite scans")
+
+    def check(label, scans, poses, opp):
+        """Kernel == plain bit for bit; kernel vs ray_cast_opponents."""
+        O = opp.shape[-3]
+        w = ok.prepare_overlay(scans.reshape(-1, BEAMS), poses.reshape(-1, 3),
+                               opp.reshape(-1, O, 4, 2), tables, BEAMS)
+        k, p = ok.overlay(w), ok.overlay_plain(w)
+        torch.cuda.synchronize()
+        require(torch.equal(k, p), f"overlay {label}: kernel != plain, max "
+                f"|d| {float((k - p).abs().max())}")
+        ref = col_ops.ray_cast_opponents(poses, scans, opp,
+                                         tables).reshape(-1, BEAMS)
+        d = (k - ref).abs()
+        far = (d > OVERLAY_ATOL).nonzero()
+        # where the far beams lie: beams from the nearest window edge
+        lo, hi = w.rows[far[:, 0], ::4, 6], w.rows[far[:, 0], ::4, 7]
+        j = far[:, 1:2].float()
+        edge = torch.minimum((j - lo).abs(), (j - hi).abs()).amin(-1)
+        fired = int((k != w.scans).sum())
+        require(fired > 0, f"overlay {label}: no beam was clipped")
+        # the two passes may part only on a beam that grazes a box corner
+        # at the edge of its blocked-view window, and on few of those
+        # (tests/test_torch_overlay.py::test_bench_grazes_side_with_float64
+        # recomputes the bench's in float64)
+        require(far.shape[0] <= OVERLAY_CAP * k.numel()
+                and bool((edge <= 1).all()),
+                f"overlay {label}: {far.shape[0]} beams beyond "
+                f"{OVERLAY_ATOL} m of ray_cast_opponents, "
+                f"{int((edge > 1).sum())} inside their window")
+        return w, k, dict(
+            scans=k.shape[0], opponents=O, clipped_beams=fired,
+            max_abs_err_vs_plain=float((k - p).abs().max()),
+            beams_beyond_atol=far.shape[0], beams=k.numel(),
+            # each such beam with its f32 inputs, exact in JSON, for a
+            # float64 recomputation on the host
+            beyond_atol=[dict(scan=a, beam=b, overlay=float(k[a, b]),
+                              ray_cast=float(ref[a, b]),
+                              scan_in=float(w.scans[a, b]),
+                              beams_from_window_edge=e,
+                              pose=poses.reshape(-1, 3)[a].tolist(),
+                              boxes=opp.reshape(-1, O, 4, 2)[a].tolist())
+                         for (a, b), e in zip(far.tolist()[:20],
+                                              edge.tolist()[:20])],
+            max_abs_err_inside_atol=float(d[d <= OVERLAY_ATOL].max()))
+
+    w, k, st_bench = check("bench", scans, bench_poses, opp)
+    require(torch.equal(k.view_as(out), out),
+            "overlay_opponents != the prepared kernel call")
+    fz = fuzz_overlay_inputs(FUZZ_SCANS, FUZZ_OPPONENTS, params, dev)
+    _, _, st_fuzz = check("fuzz", *fz)
+    emit("overlay", path_launches=launches, bench=st_bench, fuzz=st_fuzz)
+
+    # timing at the probe's shape: 8192 scans, one opponent box each
+    ms = cuda_ms(lambda: ok.overlay(w), 50)
+    plain_ms = cuda_ms(lambda: ok.overlay_plain(w), 5)
+    ray_ms = cuda_ms(lambda: col_ops.ray_cast_opponents(
+        bench_poses, scans, opp, tables), 20)
+    # bytes: scans read once and written once, rows, scalars and fan read
+    # once; operations: PAIR_OPS for each in-window (beam, edge) pair
+    in_bytes = sum(t.numel() * t.element_size()
+                   for t in (w.scans, w.rows, w.scal, w.fan))
+    out_bytes = w.scans.numel() * 4
+    pairs = w.window_pairs()
+    t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    t_ops = pairs * PAIR_OPS / H100_F32_FLOPS * 1e3
+    emit("overlay_timing", ms=ms, plain_ms=plain_ms,
+         ray_cast_opponents_ms=ray_ms, bound_ms=max(t_ops, t_bytes),
+         bytes=in_bytes + out_bytes, window_pairs=pairs,
+         ops=pairs * PAIR_OPS)
+    return {
+        "name": "overlay_kernel",
+        "route": "cuda",
+        "source": "f1tenth_gym_tpu_torch/csrc/overlay_kernel.cu",
+        "replaces": "f1tenth_gym_tpu/ops/pallas_scan.py:712",
+        "launches": launches,
+        "max_abs_err": st_bench["max_abs_err_vs_plain"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "ray_cast_opponents_ms": ray_ms,
+    }
+
+
+def f110env_phase(start, dev):
+    """F110Env on the card (module docstring, phase 10)."""
+    from f1tenth_gym_tpu_torch.envs import F110Env
+    from f1tenth_gym_tpu_torch.maps import map_path
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+
+    def policy(obs):
+        return gap_follow(torch.as_tensor(obs["scans"])).numpy()
+
+    env = F110Env(map=map_path("example_map"), num_agents=AGENTS,
+                  num_beams=BEAMS, device=dev)
+    engine = env.cfg.resolved_scan_engine(dev, env.map_data.seg_table
+                                          is not None)
+    require(engine == "kernel", f"F110Env 'auto' resolved to {engine}")
+    obs, _, done, _ = env.reset(start)
+    torch.cuda.synchronize()
+    sk.sweep.launches = 0
+    resets = 0
+    t0 = time.time()
+    for _ in range(ENV_STEPS):
+        if done:
+            obs, _, done, _ = env.reset(start)
+            resets += 1
+        obs, _, done, _ = env.step(policy(obs))
+        require(bool(np.isfinite(obs["scans"]).all()), "F110Env: non-finite")
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = sk.sweep.launches
+    require(launches == ENV_STEPS + resets,
+            f"F110Env: {launches} kernel launches in {ENV_STEPS} steps and "
+            f"{resets} resets")
+
+    seg = F110Env(map=map_path("example_map"), num_agents=AGENTS,
+                  num_beams=BEAMS, scan_engine="segments", device=dev)
+    sk.sweep.launches = 0
+    obs, _, done, _ = seg.reset(start)
+    for _ in range(SEG_STEPS):
+        obs, _, done, _ = seg.step(policy(obs))
+    require(bool(np.isfinite(obs["scans"]).all()) and sk.sweep.launches == 0,
+            "F110Env segments engine")
+    emit("f110env", engine=engine, steps=ENV_STEPS, resets=resets,
+         seconds=elapsed, steps_per_s=ENV_STEPS / elapsed,
+         kernel_launches=launches, segments_steps=SEG_STEPS,
+         segments_min_range=float(obs["scans"].min()))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -128,23 +351,28 @@ def main():
     from f1tenth_gym_tpu_torch.maps import map_path
     from f1tenth_gym_tpu_torch.ops import collision as col_ops
     from f1tenth_gym_tpu_torch.ops import lidar as lidar_ops
+    from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+    from f1tenth_gym_tpu_torch.ops import segments as seg_ops
     from f1tenth_gym_tpu_torch.utils import native
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 1. build: nvcc and g++ side by side
+    # ---- 1. build: one nvcc per kernel and g++, side by side
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        f_cuda = pool.submit(sk.build_cuda)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        f_scan = pool.submit(sk.build_cuda)
+        f_overlay = pool.submit(ok.build_cuda)
         f_native = pool.submit(native.build)
-        ptxas = f_cuda.result()
+        ptxas = {"scan_kernel": f_scan.result(),
+                 "overlay_kernel": f_overlay.result()}
         f_native.result()
     build_s = time.time() - t0
-    report = [ln.strip() for ln in ptxas.splitlines()
-              if "registers" in ln or "spill" in ln]
+    report = {name: [ln.strip() for ln in out.splitlines()
+                     if "registers" in ln or "spill" in ln]
+              for name, out in ptxas.items()}
     emit("build", seconds=build_s, ptxas=report)
 
     # ---- 2. maps (tile packs are disk-cached under the package's _build/)
@@ -220,6 +448,7 @@ def main():
     poses_ex = bench_poses(m_ex, 7, component_seed=(0.7, 0.0))
     flat = poses_ex.reshape(-1, 3)
     k_c, k_f, st_ex = kernel_vs_plain(m_ex, flat, "example_map")
+    bench_scans = k_c
     st_ex["culled_ne_full_beams"] = int((k_c[:flat.shape[0]]
                                          != k_f[:flat.shape[0]]).sum())
     require(st_ex["culled_ne_full_beams"] == 0,
@@ -241,7 +470,11 @@ def main():
             f"compact_split: {sum(leaks.values())} leak beams in {swept}")
     emit("kernel_vs_plain", example_map=st_ex, compact_split=st_split)
 
-    # ---- 4. gates of bench.py:230-289
+    # ---- 4. overlay kernel: its path, its checks, its times
+    params = P.VehicleParams.create(device=dev)
+    overlay_entry = overlay_phase(bench_scans, poses_ex, tables, params)
+
+    # ---- 5. gates of bench.py:230-289
     def inside_raster(m, cp, ranges):
         """(n, B) bool: the marched beam ends inside the map raster. A
         march that leaves the raster stops on the reference's wrapped
@@ -257,7 +490,7 @@ def main():
         return ((xr >= 0) & (xr < m.width * m.resolution)
                 & (yr >= 0) & (yr < m.height * m.resolution))
 
-    mse, mse_all, left, pose_sum = {}, {}, {}, {}
+    mse, mse_all, left, pose_sum, marches = {}, {}, {}, {}, {}
     checks = {"example_map": poses_ex[:32].reshape(-1, 3)}
     for name in ("berlin", "stata_basement"):
         # the gate sampler of bench.py:258, drawn on the CPU so that the
@@ -268,6 +501,7 @@ def main():
             P.make_generator("cpu", 11), (32,)).to(dev)
     for name, cp in checks.items():
         march = lidar_ops.get_scan(cp, maps[name], tables, BEAMS, THETA_DIS)
+        marches[name] = march
         kern = sk.scan(cp, maps[name], tables, BEAMS, THETA_DIS, device=dev)
         inside = inside_raster(maps[name], cp, march)
         d2 = (march - kern) ** 2
@@ -282,7 +516,6 @@ def main():
     cold = lidar_ops.check_ttc(torch.full((2, BEAMS), 25.0, device=dev), vel,
                                tables)
     require(bool(hot.all()) and not bool(cold.any()), "iTTC gate")
-    params = P.VehicleParams.create(device=dev)
     overlap = col_ops.get_vertices(torch.tensor(
         [[0.0, 0.0, 0.0], [0.1, 0.0, 0.5]], device=dev), params.length,
         params.width)
@@ -297,11 +530,63 @@ def main():
          beams_leaving_raster=left, beams_per_map=32 * BEAMS,
          gate_pose_sum=pose_sum, ittc_collision_gate="ok")
 
-    # ---- 5. main path: the bench racing step on the port
+    # ---- 6. segments engine: the gate's bar, and a batch step with it
+    seg_mse = {}
+    for name in ("example_map", "berlin"):
+        cp, march = checks[name], marches[name]
+        seg = seg_ops.get_scan_segments(cp, maps[name].segments, tables,
+                                        BEAMS, THETA_DIS)
+        inside = inside_raster(maps[name], cp, march)
+        seg_mse[name] = float(((march - seg) ** 2)[inside].mean())
+        require(seg_mse[name] < 2.0,
+                f"segments vs march MSE {seg_mse[name]} on {name}")
+    cfg_seg = P.SimConfig(num_agents=AGENTS, num_beams=BEAMS,
+                          scan_engine="segments")
+    gen = P.make_generator(dev, 1)
+    sk.sweep.launches = 0
+    s_seg, *_ = P.batch_reset(poses_ex[:SEG_ENVS], params, m_ex, tables,
+                              cfg_seg, 0.01, generator=gen, device=dev)
+    for _ in range(SEG_STEPS):
+        s_seg, *_ = P.batch_step(s_seg, gap_follow(s_seg.scans), params, m_ex,
+                                 tables, cfg_seg, 0.01, gen)
+    require(bool(torch.isfinite(s_seg.scans).all())
+            and sk.sweep.launches == 0, "segments batch step")
+    emit("segments", scan_mse_by_map=seg_mse, batch_envs=SEG_ENVS,
+         batch_steps=SEG_STEPS)
+
+    # ---- 7. ScanSimulator2D: kernel engine with its culled pack, segments
+    t = time.time()
+    sim = P.ScanSimulator2D(num_beams=BEAMS, engine="kernel",
+                            tile_culling=True, device=dev)
+    sim.set_map(map_path("example_map"))
+    sim_map_s = time.time() - t
+    require(sim.map_data.tile_tables is not None, "ScanSimulator2D: no pack")
+    flat = poses_ex.reshape(-1, 3)
+    got = sim.scan_batch(flat)
+    want = sk.scan(flat, sim.map_data, sim.tables, BEAMS, THETA_DIS,
+                   device=dev)
+    require(torch.equal(got, want), "ScanSimulator2D kernel != kernel scan")
+    sims = {}
+    for engine in ("march", "segments"):
+        sims[engine] = P.ScanSimulator2D(num_beams=BEAMS, engine=engine,
+                                         device=dev)
+        sims[engine].set_map(map_path("example_map"))
+    cp = checks["example_map"]
+    a, b = sims["march"].scan_batch(cp), sims["segments"].scan_batch(cp)
+    inside = inside_raster(sims["march"].map_data, cp, a)
+    sim_mse = float(((a - b) ** 2)[inside].mean())
+    require(sim_mse < 2.0, f"ScanSimulator2D segments vs march MSE {sim_mse}")
+    emit("scan_sim", map_seconds=sim_map_s, kernel_scans=flat.shape[0],
+         pack=list(sim.map_data.tile_tables.shape),
+         beams_differing_from_main_pack=int((got != bench_scans).sum()),
+         segments_vs_march_mse=sim_mse)
+
+    # ---- 8. main path: the bench racing step on the port
     states, drive = main_path(m_ex, tables, poses_ex)
     s, _ = drive(states, WARMUP)
     torch.cuda.synchronize()
     sk.sweep.launches = 0
+    ok.overlay.launches = 0
     t0 = time.time()
     s, dones = drive(s, STEPS)
     torch.cuda.synchronize()
@@ -309,6 +594,7 @@ def main():
     launches = sk.sweep.launches
     dones = int(dones)
     require(launches == STEPS, f"{launches} kernel launches in {STEPS} steps")
+    require(ok.overlay.launches == 0, "the racing step launched the overlay")
     sc = s.scans
     require(bool(torch.isfinite(sc).all()), "non-finite scans")
     require(bool((sc[s.steps > 0] > 0).all())
@@ -318,26 +604,14 @@ def main():
     rate = ENVS * STEPS / elapsed
     emit("main_path", envs=ENVS, agents=AGENTS, beams=BEAMS, steps=STEPS,
          seconds=elapsed, env_steps_per_s=rate, dones=dones,
-         kernel_launches=launches)
+         kernel_launches=launches, overlay_launches=ok.overlay.launches)
 
-    # ---- 6. kernel timing at the main path's shapes, mid sort period
+    # ---- 9. kernel timing at the main path's shapes, mid sort period
     s, _ = drive(s, SORT_PERIOD // 2)
     pose = torch.stack([s.x[..., 0], s.x[..., 1], s.x[..., 4]], -1)
     w_c = sk.prepare_map(pose.reshape(-1, 3), m_ex, tables, BEAMS, THETA_DIS)
     w_f = sk.prepare_map(pose.reshape(-1, 3), m_ex, tables, BEAMS, THETA_DIS,
                          culled=False)
-
-    def cuda_ms(fn, iters):
-        for _ in range(3):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
 
     k_c = sk.sweep(w_c)
     p_c = sk.sweep_plain(w_c)
@@ -363,6 +637,9 @@ def main():
          culled_subgroups=int((w_c.bid > 0).sum()),
          subgroups=int(w_c.bid.numel()))
 
+    # ---- 10. the reference-compatible env on the card
+    f110env_phase(poses_ex[0].cpu().numpy(), dev)
+
     print(json.dumps({"kernels": [{
         "name": "scan_kernel",
         "route": "cuda",
@@ -376,7 +653,7 @@ def main():
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-    }]}), flush=True)
+    }, overlay_entry]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

@@ -26,6 +26,7 @@ from f1tenth_gym_tpu_torch.parallel.vector import (
     sort_envs_for_locality,
     uniform_pose_sampler,
 )
+from f1tenth_gym_tpu_torch.scan_sim import ScanSimulator2D
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables, SimState, VehicleParams
 from f1tenth_gym_tpu_torch.utils.map_loader import load_map, make_map_data
 
@@ -36,6 +37,7 @@ __all__ = [
     "MODEL_KS",
     "MODEL_ST",
     "MapData",
+    "ScanSimulator2D",
     "ScanTables",
     "SimConfig",
     "SimState",

@@ -2,11 +2,14 @@
 
 Port of ``f1tenth_gym_tpu/config.py`` (``SimConfig``, ``DEFAULT_PARAMS``
 and the LiDAR defaults). The scan engines are ``"march"`` (distance-field
-sphere marching, exact against the reference), ``"kernel"`` (the
+sphere marching, exact against the reference), ``"segments"`` (the
+ray/segment scan of ``ops/segments.py`` in torch ops), ``"kernel"`` (the
 hand-written CUDA ray/segment sweep of ``ops/scan_kernel.py``, plain torch
 on CPU tensors) and ``"auto"``, which resolves to ``"kernel"`` on a CUDA
 device when the map has a segment table and to ``"march"`` otherwise
 (mirrors ``config.py:93-103`` and ``core/simulator.py:157-164``).
+``"pallas"``, the JAX package's name for the kernel engine, is taken as
+``"kernel"``, so code written against that package runs unchanged.
 """
 
 from __future__ import annotations
@@ -21,6 +24,18 @@ INTEGRATOR_EULER = "euler"
 MODEL_ST = "st"  # 7-state single-track with the |v|<0.5 kinematic switch
 MODEL_KS = "ks"  # kinematic bicycle embedded in the 7-state layout
 
+SCAN_ENGINES = ("march", "segments", "kernel", "auto")
+
+
+def canonical_scan_engine(name: str) -> str:
+    """The port's name of scan engine ``name`` ("pallas", the JAX
+    package's name, is "kernel"); raises on unknown names."""
+    engine = "kernel" if name == "pallas" else name
+    if engine not in SCAN_ENGINES:
+        raise ValueError(f"unknown scan engine '{name}'; use one of "
+                         f"{SCAN_ENGINES} or 'pallas'")
+    return engine
+
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
@@ -34,13 +49,17 @@ class SimConfig:
     model: str = MODEL_ST
     # cap on sphere-marching iterations (ops/lidar.py get_scan)
     max_march_iters: int = 1024
-    # "march" | "kernel" | "auto" (see module docstring)
+    # "march" | "segments" | "kernel" ("pallas") | "auto" (module docstring)
     scan_engine: str = "march"
     scan_noise: bool = True
     # reference quirk: every car's rng shares one seed, so all agents of an
     # env draw the same noise vector each step
     shared_agent_noise: bool = True
     dtype: str = "float32"
+
+    def __post_init__(self):
+        object.__setattr__(self, "scan_engine",
+                           canonical_scan_engine(self.scan_engine))
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -8,7 +8,7 @@ core/simulator.py:141-263:
   1. steering-delay FIFO pop/push           (base_classes.py:270-278)
   2. PID -> RK4/Euler integration -> single +-2pi yaw wrap
   3. the scan pose (lidar mounted lidar_dist ahead)
-  4. the scan ("march" or the "kernel" sweep)
+  4. the scan ("march", "segments" or the "kernel" sweep)
   5. noise, before iTTC                      (laser_models.py:450-452)
   6. collision boxes from the PRE-zeroing pose
   7. iTTC, which zeroes x[3:], yaw included  (base_classes.py:229-254)
@@ -33,6 +33,7 @@ from f1tenth_gym_tpu_torch.ops import collision as col_ops
 from f1tenth_gym_tpu_torch.ops import dynamics as dyn_ops
 from f1tenth_gym_tpu_torch.ops import lidar as lidar_ops
 from f1tenth_gym_tpu_torch.ops import scan_kernel
+from f1tenth_gym_tpu_torch.ops import segments as seg_ops
 from f1tenth_gym_tpu_torch.state import (
     IX_VEL,
     IX_X,
@@ -106,6 +107,13 @@ def sim_step(state: SimState, actions: torch.Tensor, params: VehicleParams,
     if engine == "kernel":
         scans = scan_kernel.scan(scan_pose, map_data, tables, cfg.num_beams,
                                  cfg.theta_dis, device=map_data.device)
+    elif engine == "segments":
+        if map_data.segments is None:
+            raise ValueError(
+                "scan_engine='segments' needs MapData.segments: load the map "
+                "with extract_segments=True")
+        scans = seg_ops.get_scan_segments(scan_pose, map_data.segments,
+                                          tables, cfg.num_beams, cfg.theta_dis)
     elif engine == "march":
         scans = lidar_ops.get_scan(scan_pose, map_data, tables, cfg.num_beams,
                                    cfg.theta_dis, max_iters=cfg.max_march_iters)

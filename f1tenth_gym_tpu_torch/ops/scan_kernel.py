@@ -28,8 +28,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-import shutil
-import subprocess
 from typing import Optional
 
 import numpy as np
@@ -37,14 +35,14 @@ import torch
 
 from f1tenth_gym_tpu_torch.config import resolve_device
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables
+from f1tenth_gym_tpu_torch.utils import cuda_build
 
 TWO_PI = 2.0 * np.pi
 GROUP = 8   # segment rows per group (the pack's row format)
 SUB = 8     # scans per table-selection subgroup (one CUDA block row)
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CUDA_SRC = os.path.join(_PKG_DIR, "csrc", "scan_kernel.cu")
-CUDA_SO = os.path.join(_PKG_DIR, "_build", "scan_kernel.so")
+CUDA_SRC = os.path.join(cuda_build.CSRC_DIR, "scan_kernel.cu")
+CUDA_SO = os.path.join(cuda_build.BUILD_DIR, "scan_kernel.so")
 
 
 def build_seg_table(segments: np.ndarray) -> np.ndarray:
@@ -332,39 +330,16 @@ def sweep_plain(w: SweepInputs) -> torch.Tensor:
 _LIB = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", os.path.join("/usr", "local", "cuda"))
-    return os.path.join(home, "bin", "nvcc")
-
-
 def build_cuda() -> str:
-    """Compile ``csrc/scan_kernel.cu`` for sm_90a into ``_build/``.
-
-    Returns the compiler's resource report (``-Xptxas -v``); raises
-    ``RuntimeError`` with its output when the build fails."""
-    os.makedirs(os.path.dirname(CUDA_SO), exist_ok=True)
-    tmp = f"{CUDA_SO}.tmp{os.getpid()}"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, CUDA_SRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, CUDA_SO)
-    return proc.stdout + proc.stderr
+    """Compile ``csrc/scan_kernel.cu`` for sm_90a into ``_build/``; returns
+    the compiler's resource report (``utils/cuda_build.py``)."""
+    return cuda_build.build(CUDA_SRC, CUDA_SO)
 
 
 def _load_cuda():
     global _LIB
     if _LIB is None:
-        if (not os.path.exists(CUDA_SO)
-                or os.path.getmtime(CUDA_SO) < os.path.getmtime(CUDA_SRC)):
-            build_cuda()
-        lib = ctypes.CDLL(CUDA_SO)
+        lib = cuda_build.load(CUDA_SRC, CUDA_SO)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.scan_sweep.argtypes = [vp, vp, vp, vp, ci, vp, vp, vp, vp, ci,
                                    vp, ci, ci, cf, cf, vp]

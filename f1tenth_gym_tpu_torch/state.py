@@ -66,6 +66,28 @@ class VehicleParams:
         return cls(**{k: torch.as_tensor(d[k], dtype=dtype, device=dev)
                       for k in DEFAULT_PARAMS})
 
+    def replace_params(self, params: Dict[str, Any],
+                       agent_idx: int = -1) -> "VehicleParams":
+        """A copy with ``params`` updated (state.py:77-98 of the JAX
+        package): every agent's value when ``agent_idx`` < 0, else only
+        that agent's entry of an (A,) leaf. A 0-d leaf cannot take a
+        per-agent value: create the params with (A,) leaves first."""
+        updates = {}
+        for k, v in params.items():
+            cur = getattr(self, k)
+            new = torch.as_tensor(v, dtype=cur.dtype, device=cur.device)
+            if agent_idx < 0:
+                updates[k] = new.expand(cur.shape).clone()
+            else:
+                if cur.dim() == 0:
+                    raise ValueError(
+                        f"Per-agent update of scalar param '{k}': create "
+                        "VehicleParams with (A,)-shaped leaves first")
+                leaf = cur.clone()
+                leaf[agent_idx] = new
+                updates[k] = leaf
+        return dataclasses.replace(self, **updates)
+
 
 @dataclasses.dataclass
 class MapData:
