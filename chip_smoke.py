@@ -5,7 +5,9 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. build   — the CUDA scan and overlay kernels (nvcc, sm_90a) and the
-             native host library (g++), all started together;
+             native host library (g++), all started together; each
+             kernel's registers, shared memory and spills, and its resident
+             blocks an SM and waves at the main path's shape;
 2. maps    — example_map culled at 1.25 m tiles, berlin and stata_basement
              culled at the default 2.5 m, compact with a split pack;
 3. kernel  — the scan kernel against its plain torch version on 8192 bench
@@ -14,7 +16,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              per-scan extras sweep runs, where culled == full except on
              beams that leak through a wall vertex: over eight seeds every
              differing beam must be such a leak, and they may be at most
-             1e-6 of the beams;
+             1e-6 of the beams; the same on berlin and stata_basement,
+             on their 32 gate poses and on 8192 bench poses each; on every
+             input the plain transcription of the kernel's row skip keeps
+             every pair that hits (its kept and hit shares are printed);
 4. overlay — the overlay kernel's path, ``overlay_opponents`` on the 8192
              bench scans, each clipped by the other agent's box (O = 1),
              one launch; then the kernel against its plain torch version
@@ -22,8 +27,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              three opponents each, against the racing step's
              ``ray_cast_opponents`` within 2e-3 m except on at most 1e-6
              of the beams, each at the edge of its blocked-view window
-             (a beam grazing a box corner), and its CUDA-event times
-             beside the bound;
+             (a beam grazing a box corner), and its times beside the
+             bound;
 5. gates   — kernel vs marching engine MSE < 2.0 on the three maps
              (32 poses each, over the beams whose march stays inside the
              map raster; the all-beam MSE is printed beside it), the iTTC
@@ -37,13 +42,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              auto-reset to each env's start grid, gap-follow policy,
              locality re-sort every 16 steps; 16 warm-up + 256 timed steps;
              one scan-kernel launch per step, no overlay launch;
-9. timing  — CUDA-event times of the scan kernel (culled and full) and of
-             the plain version at the main path's shapes, beside the bound;
+9. timing  — times of the scan kernel (culled, full, and culled with its
+             row skip off) and of the plain version at the main path's
+             shapes, beside the bound recounted from the pairs that hit
+             and the table rows read;
 10. f110env — the reference-compatible F110Env on the card ("auto", so the
              scan kernel): reset, 200 gap-follow steps with one kernel
              launch each, steps per second; then a few steps with the
              segments engine.
 
+A kernel's time is the CUDA-event time a launch of a CUDA graph of
+launches (``kernel_ms``), printed beside the eager launches' time and the
+host's enqueue time a call, which is of the same order as the kernels.
 Then the ``kernels`` line, the card's name and power limit, and the result
 line. Exits non-zero without a result when no CUDA device is present.
 """
@@ -161,6 +171,49 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, iters):
+    """A kernel wrapper's time three ways: ``ms``, the CUDA-event time a
+    launch of a CUDA graph of ``iters`` wrapper calls (the kernel alone:
+    no host work between launches); ``eager_ms``, the CUDA-event time a
+    call of ``iters`` calls made one after the other from Python; and
+    ``enqueue_us``, the host time a call takes to enqueue (checks, ctypes
+    call, output allocation). Where ``enqueue_us`` is not well under
+    ``ms``, ``eager_ms`` measures the host and ``ms`` is the kernel's."""
+    eager_ms = cuda_ms(fn, iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_us = (time.perf_counter() - t0) / iters * 1e6
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return dict(ms=start.elapsed_time(end) / iters, eager_ms=eager_ms,
+                enqueue_us=enqueue_us)
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def other_agent_boxes(poses, params):
     """(E, 2, 3) poses -> (E, 2, 1, 4, 2): each agent's one opponent is
     the other agent's box (tools/step_probe.py:93-103)."""
@@ -193,7 +246,7 @@ def fuzz_overlay_inputs(n, O, params, dev, seed=0):
     return dev_f32(scans), dev_f32(poses), verts
 
 
-def overlay_phase(bench_scans, bench_poses, tables, params):
+def overlay_phase(bench_scans, bench_poses, tables, params, card_name):
     """The overlay kernel's path and checks at the probe's shape (module
     docstring, phase 4). Returns the kernel's entry of the kernels line."""
     from f1tenth_gym_tpu_torch.ops import collision as col_ops
@@ -264,7 +317,10 @@ def overlay_phase(bench_scans, bench_poses, tables, params):
     emit("overlay", path_launches=launches, bench=st_bench, fuzz=st_fuzz)
 
     # timing at the probe's shape: 8192 scans, one opponent box each
-    ms = cuda_ms(lambda: ok.overlay(w), 50)
+    t_k = kernel_ms(lambda: ok.overlay(w), 50)
+    ms = t_k["ms"]
+    # the memory's floor for these bytes: a copy of the scans
+    copy_ms = kernel_ms(lambda: w.scans.clone(), 50)["ms"]
     plain_ms = cuda_ms(lambda: ok.overlay_plain(w), 5)
     ray_ms = cuda_ms(lambda: col_ops.ray_cast_opponents(
         bench_poses, scans, opp, tables), 20)
@@ -276,10 +332,13 @@ def overlay_phase(bench_scans, bench_poses, tables, params):
     pairs = w.window_pairs()
     t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
     t_ops = pairs * PAIR_OPS / H100_F32_FLOPS * 1e3
-    emit("overlay_timing", ms=ms, plain_ms=plain_ms,
-         ray_cast_opponents_ms=ray_ms, bound_ms=max(t_ops, t_bytes),
+    emit("overlay_timing", card=card_name, ms=ms,
+         eager_ms=t_k["eager_ms"], enqueue_us=t_k["enqueue_us"],
+         plain_ms=plain_ms, ray_cast_opponents_ms=ray_ms,
+         bound_ms=max(t_ops, t_bytes), bound_share=max(t_ops, t_bytes) / ms,
+         scans_copy_ms=copy_ms,
          bytes=in_bytes + out_bytes, window_pairs=pairs,
-         ops=pairs * PAIR_OPS)
+         ops=pairs * PAIR_OPS, occupancy=ok.occupancy(*w.scans.shape))
     return {
         "name": "overlay_kernel",
         "route": "cuda",
@@ -293,6 +352,7 @@ def overlay_phase(bench_scans, bench_poses, tables, params):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
         "ray_cast_opponents_ms": ray_ms,
+        "enqueue_us": t_k["enqueue_us"],
     }
 
 
@@ -357,6 +417,7 @@ def main():
     from f1tenth_gym_tpu_torch.utils import native
 
     dev = torch.device("cuda")
+    card_name = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -373,7 +434,9 @@ def main():
     report = {name: [ln.strip() for ln in out.splitlines()
                      if "registers" in ln or "spill" in ln]
               for name, out in ptxas.items()}
-    emit("build", seconds=build_s, ptxas=report)
+    emit("build", seconds=build_s, ptxas=report, occupancy={
+        "scan_kernel": sk.occupancy(ENVS * AGENTS, BEAMS),
+        "overlay_kernel": ok.occupancy(ENVS * AGENTS, BEAMS)})
 
     # ---- 2. maps (tile packs are disk-cached under the package's _build/)
     def timed_load(name, **kw):
@@ -416,10 +479,17 @@ def main():
         require(torch.equal(k_f, p_f), f"{label}: full kernel != plain, "
                 f"max |d| {float((k_f - p_f).abs().max())}")
         require(bool(torch.isfinite(k_c).all()), f"{label}: non-finite")
+        # the row skip, from its plain transcription: the share of swept
+        # pairs it keeps, and no pair that hits dropped
+        pairs = {"culled": sk.pair_counts(w_c), "full": sk.pair_counts(w_f)}
+        require(pairs["culled"]["missed"] == 0 and pairs["full"]["missed"]
+                == 0, f"{label}: the row skip drops hit pairs: {pairs}")
         stats = dict(scans=flat.shape[0], culled_subgroups=int(
             (w_c.bid > 0).sum()), subgroups=int(w_c.bid.numel()),
             mean_swept_rows=float(w_c.swept_rows().float().mean()),
-            extras_rows=int(w_c.ecnt.sum()) * sk.GROUP)
+            extras_rows=int(w_c.ecnt.sum()) * sk.GROUP, pairs=pairs,
+            kept_share={k: v["kept"] / v["swept"] for k, v in pairs.items()},
+            hit_share={k: v["hit"] / v["swept"] for k, v in pairs.items()})
         return k_c, k_f, stats
 
     def leak_beams(m, flat, k_c, k_f, label):
@@ -468,11 +538,28 @@ def main():
     st_split.update(leak_beams_by_seed=leaks, beams_swept=swept)
     require(sum(leaks.values()) <= LEAK_CAP * swept,
             f"compact_split: {sum(leaks.values())} leak beams in {swept}")
-    emit("kernel_vs_plain", example_map=st_ex, compact_split=st_split)
+    # the gate poses of berlin and stata_basement (the gate sampler of
+    # bench.py:258, drawn on the CPU so that the poses are the same on
+    # every machine; tests/test_torch_gate.py draws them too), and bench
+    # poses there: other walls, other arcs for the row skip
+    checks = {"example_map": poses_ex[:32].reshape(-1, 3)}
+    st_maps = {}
+    for name in ("berlin", "stata_basement"):
+        host_map = P.load_map(map_path(name), device="cpu")
+        checks[name] = P.uniform_pose_sampler(host_map, clearance=0.5)(
+            P.make_generator("cpu", 11), (32,)).to(dev)
+        _, _, st_maps[f"{name}_gate"] = kernel_vs_plain(
+            maps[name], checks[name], f"{name} gate poses")
+        _, _, st_maps[f"{name}_bench"] = kernel_vs_plain(
+            maps[name], bench_poses(maps[name], 7).reshape(-1, 3),
+            f"{name} bench poses")
+    emit("kernel_vs_plain", example_map=st_ex, compact_split=st_split,
+         **st_maps)
 
     # ---- 4. overlay kernel: its path, its checks, its times
     params = P.VehicleParams.create(device=dev)
-    overlay_entry = overlay_phase(bench_scans, poses_ex, tables, params)
+    overlay_entry = overlay_phase(bench_scans, poses_ex, tables, params,
+                                  card_name)
 
     # ---- 5. gates of bench.py:230-289
     def inside_raster(m, cp, ranges):
@@ -491,14 +578,6 @@ def main():
                 & (yr >= 0) & (yr < m.height * m.resolution))
 
     mse, mse_all, left, pose_sum, marches = {}, {}, {}, {}, {}
-    checks = {"example_map": poses_ex[:32].reshape(-1, 3)}
-    for name in ("berlin", "stata_basement"):
-        # the gate sampler of bench.py:258, drawn on the CPU so that the
-        # poses are the same on every machine (tests/test_torch_gate.py
-        # draws them too)
-        host_map = P.load_map(map_path(name), device="cpu")
-        checks[name] = P.uniform_pose_sampler(host_map, clearance=0.5)(
-            P.make_generator("cpu", 11), (32,)).to(dev)
     for name, cp in checks.items():
         march = lidar_ops.get_scan(cp, maps[name], tables, BEAMS, THETA_DIS)
         marches[name] = march
@@ -613,25 +692,49 @@ def main():
     w_f = sk.prepare_map(pose.reshape(-1, 3), m_ex, tables, BEAMS, THETA_DIS,
                          culled=False)
 
-    k_c = sk.sweep(w_c)
-    p_c = sk.sweep_plain(w_c)
+    k_c, k_f = sk.sweep(w_c), sk.sweep(w_f)
+    p_c, p_f = sk.sweep_plain(w_c), sk.sweep_plain(w_f)
     max_err = float((k_c - p_c).abs().max())
     require(max_err == 0.0, f"main-path kernel != plain: {max_err}")
-    ms_culled = cuda_ms(lambda: sk.sweep(w_c), 50)
-    ms_full = cuda_ms(lambda: sk.sweep(w_f), 20)
+    require(torch.equal(k_f, p_f), "main-path full kernel != plain")
+    t_culled = kernel_ms(lambda: sk.sweep(w_c), 50)
+    t_full = kernel_ms(lambda: sk.sweep(w_f), 20)
+    # the same kernel with its row skip off: every pair tested
+    t_noskip = kernel_ms(lambda: sk._sweep_cuda(w_c, skip=False), 20)
     ms_plain = cuda_ms(lambda: sk.sweep_plain(w_c), 3)
-    rows = w_c.swept_rows().double()
-    ops = float(rows.sum()) * BEAMS * HIT_OPS
+    # bound: HIT_OPS for each pair whose beam lies in the row's arc (the
+    # least work the sweep needs on these inputs), against the bytes: the
+    # output, each table row some scan sweeps once (a subgroup's block and
+    # the extras, 32 B a row), the scalars, the fan and the selection (the
+    # extras' start and count only where the pack has them); the count
+    # over all swept pairs is kept beside it
+    pairs = {"culled": sk.pair_counts(w_c), "full": sk.pair_counts(w_f)}
+    require(pairs["culled"]["missed"] == 0 and pairs["full"]["missed"] == 0,
+            f"main path: the row skip drops hit pairs: {pairs}")
     n_pad = w_c.scal.shape[0]
-    in_bytes = sum(t.numel() * t.element_size() for t in (
-        w_c.scal, w_c.fan, w_c.full, w_c.tabs, w_c.bid, w_c.ng, w_c.est,
-        w_c.ecnt))
+    table_rows = sk.rows_read(w_c)
+    selection = (w_c.bid, w_c.ng) + ((w_c.est, w_c.ecnt) if w_c.has_extras
+                                     else ())
+    in_bytes = table_rows * 8 * 4 + sum(
+        t.numel() * t.element_size()
+        for t in (w_c.scal, w_c.fan) + selection)
     out_bytes = n_pad * BEAMS * 4
-    t_ops = ops / H100_F32_FLOPS * 1e3
+    t_ops = pairs["culled"]["hit"] * HIT_OPS / H100_F32_FLOPS * 1e3
     t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
-    emit("kernel_timing", ms_culled=ms_culled, ms_full=ms_full,
-         plain_ms=ms_plain, bound_ms=max(t_ops, t_bytes), ops=ops,
-         bytes=in_bytes + out_bytes,
+    rows = w_c.swept_rows().double()
+    emit("kernel_timing", card=card_name, culled=t_culled, full=t_full,
+         culled_no_skip=t_noskip, plain_ms=ms_plain,
+         bound_ms=max(t_ops, t_bytes), ops_bound_ms=t_ops,
+         bytes_bound_ms=t_bytes, bytes=in_bytes + out_bytes,
+         table_rows_read=table_rows,
+         bound_ms_all_swept_pairs=max(
+             pairs["culled"]["swept"] * HIT_OPS / H100_F32_FLOPS * 1e3,
+             t_bytes),
+         bound_share=max(t_ops, t_bytes) / t_culled["ms"],
+         pairs=pairs,
+         kept_share=pairs["culled"]["kept"] / pairs["culled"]["swept"],
+         hit_share=pairs["culled"]["hit"] / pairs["culled"]["swept"],
+         occupancy=sk.occupancy(n_pad, BEAMS),
          mean_swept_rows=float(rows.mean()),
          mean_swept_groups=float(rows.mean()) / sk.GROUP,
          culled_subgroups=int((w_c.bid > 0).sum()),
@@ -647,18 +750,15 @@ def main():
         "replaces": "f1tenth_gym_tpu/ops/pallas_scan.py:168",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": ms_culled,
-        "ms_full": ms_full,
+        "ms": t_culled["ms"],
+        "ms_full": t_full["ms"],
         "plain_ms": ms_plain,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
+        "enqueue_us": t_culled["enqueue_us"],
     }, overlay_entry]}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_name, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

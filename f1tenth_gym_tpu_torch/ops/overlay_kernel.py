@@ -42,10 +42,6 @@ from f1tenth_gym_tpu_torch.config import resolve_device
 from f1tenth_gym_tpu_torch.state import ScanTables
 from f1tenth_gym_tpu_torch.utils import cuda_build
 
-# shared memory of one block holds 32 B a row; stay under the 48 KB a
-# block gets without opting in
-MAX_ROWS = 48 * 1024 // 32
-
 CUDA_SRC = os.path.join(cuda_build.CSRC_DIR, "overlay_kernel.cu")
 CUDA_SO = os.path.join(cuda_build.BUILD_DIR, "overlay_kernel.so")
 
@@ -186,8 +182,10 @@ def _load_cuda():
     if _LIB is None:
         lib = cuda_build.load(CUDA_SRC, CUDA_SO)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.overlay_clip.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.overlay_clip.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.overlay_clip.restype = ci
+        lib.overlay_clip_occupancy.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.overlay_clip_occupancy.restype = ci
         _LIB = lib
     return _LIB
 
@@ -207,10 +205,6 @@ def _check_cuda_inputs(w: OverlayInputs):
     if (w.rows.shape[0] != n or w.rows.shape[2] != 8
             or w.scal.shape != (n, 4) or w.fan.shape != (2, B)):
         raise ValueError("overlay kernel inputs have inconsistent shapes")
-    if w.rows.shape[1] > MAX_ROWS:
-        raise ValueError(f"overlay kernel takes at most {MAX_ROWS} edge rows "
-                         f"a scan ({MAX_ROWS // 4} opponents), got "
-                         f"{w.rows.shape[1]}")
 
 
 def _overlay_cuda(w: OverlayInputs) -> torch.Tensor:
@@ -221,13 +215,28 @@ def _overlay_cuda(w: OverlayInputs) -> torch.Tensor:
         return out
     lib = _load_cuda()
     stream = torch.cuda.current_stream(w.scans.device).cuda_stream
+    vec4 = B % 4 == 0 and not (w.scans.data_ptr() | out.data_ptr()) % 16
     err = lib.overlay_clip(w.scans.data_ptr(), w.rows.data_ptr(),
                            w.scal.data_ptr(), w.fan.data_ptr(),
-                           out.data_ptr(), n, B, w.rows.shape[1], stream)
+                           out.data_ptr(), n, B, w.rows.shape[1], int(vec4),
+                           stream)
     if err != 0:
         raise RuntimeError(f"overlay kernel launch failed: CUDA error {err}")
     overlay.launches += 1
     return out
+
+
+def occupancy(n_scans: int, num_beams: int) -> dict:
+    """The kernel's launch at this shape on the current card: resident
+    blocks an SM, grid blocks, and waves (grid over resident blocks)."""
+    grid = ctypes.c_int(0)
+    per_sm = _load_cuda().overlay_clip_occupancy(n_scans, num_beams,
+                                                 ctypes.byref(grid))
+    if per_sm <= 0:
+        raise RuntimeError("overlay kernel occupancy query failed")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(blocks_per_sm=per_sm, grid_blocks=grid.value,
+                waves=grid.value / (per_sm * sms))
 
 
 def overlay(w: OverlayInputs) -> torch.Tensor:

@@ -18,6 +18,12 @@ One call is three steps:
   the CPU (and only there: a CUDA tensor launches the kernel or raises);
 * ``scan`` chains the two and unpads.
 
+The kernel skips the rows whose arc, seen from the scan origin, misses a
+warp's beam chunk. ``skip_keep`` transcribes its keep test in plain torch,
+``sweep_kept`` sweeps only the kept pairs, ``pair_counts`` counts the
+swept, kept and hitting pairs and ``rows_read`` the table rows the sweep
+reads: tests and measurements use them, the main path does not.
+
 The kernel is built with ``nvcc`` at its first launch into
 ``f1tenth_gym_tpu_torch/_build/`` and bound with ``ctypes``; importing this
 module builds nothing.
@@ -39,7 +45,13 @@ from f1tenth_gym_tpu_torch.utils import cuda_build
 
 TWO_PI = 2.0 * np.pi
 GROUP = 8   # segment rows per group (the pack's row format)
-SUB = 8     # scans per table-selection subgroup (one CUDA block row)
+SUB = 8     # scans per table-selection subgroup
+# the CUDA kernel's row skip (csrc/scan_kernel.cu states the error budget)
+CHUNK = 128         # beams a warp, 4 a lane
+SKIP_DELTA = 1e-3   # rad: a chunk's sector is widened by this on each side
+SKIP_EPS = 0.05     # m: rows whose line passes nearer the origin are kept
+SKIP_RATIO = 1000   # rows longer than this times that distance are kept
+MAX_WARPS = 16      # beam chunks a block (the kernel's kMaxWarps)
 
 CUDA_SRC = os.path.join(cuda_build.CSRC_DIR, "scan_kernel.cu")
 CUDA_SO = os.path.join(cuda_build.BUILD_DIR, "scan_kernel.so")
@@ -267,8 +279,9 @@ def _beam_dirs(w: SweepInputs):
     return cos_t * cg + sin_t * g, sin_t * cg - cos_t * g
 
 
-def _accumulate(acc, rows, valid, ox, oy, dx, dy):
-    """acc (n, B) = max(acc, max over rows (n, R, 8) where valid (n, R))."""
+def _hits(rows, ox, oy, dx, dy):
+    """(s, q) (n, B, R) of the hit test of beams (n, B) against rows
+    (n, R, 8): s the inverse range, and the hit counts where q >= 0."""
     nx, ny, c, tx, ty, wn = (rows[..., i] for i in range(6))
     num = c - ox * nx - oy * ny
     num = torch.where(torch.abs(num) < 1e-12, 1e-12, num)
@@ -279,7 +292,12 @@ def _accumulate(acc, rows, valid, ox, oy, dx, dy):
     s = den * inv[:, None, :]
     ud = tx[:, None, :] * dxe + ty[:, None, :] * dye
     b = uo[:, None, :] * s + ud
-    q = torch.minimum(b, s - b)
+    return s, torch.minimum(b, s - b)
+
+
+def _accumulate(acc, rows, valid, ox, oy, dx, dy):
+    """acc (n, B) = max(acc, max over rows (n, R, 8) where valid (n, R))."""
+    s, q = _hits(rows, ox, oy, dx, dy)
     sc = torch.where((q >= 0) & valid[:, None, :], s, 0.0)
     return torch.maximum(acc, sc.amax(-1))
 
@@ -324,6 +342,149 @@ def sweep_plain(w: SweepInputs) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# the kernel's row skip, as plain torch (tests and measurement only: the
+# main path runs the kernel, and sweep_plain tests every pair)
+# --------------------------------------------------------------------------
+
+def _row_index(w: SweepInputs):
+    """Each scan's rows in the kernel's order (its subgroup's shared rows,
+    then its own extras) as (bid (n_pad,), g (n_pad, R), valid (n_pad, R)):
+    row g of the full table where bid == 0, else of block bid - 1."""
+    n_pad = w.scal.shape[0]
+    dev = w.scal.device
+    sub_of = torch.arange(n_pad, device=dev) // SUB
+    bid = w.bid.long()[sub_of]
+    n_sh = (w.ng.long() * GROUP)[sub_of]
+    n_ex = (w.ecnt.long() * GROUP if w.has_extras
+            else torch.zeros_like(n_sh))
+    e0 = w.est.long() * GROUP
+    n_rows = n_sh + n_ex
+    i = torch.arange(max(1, int(n_rows.max())), device=dev).expand(n_pad, -1)
+    g = torch.where(i < n_sh[:, None], i, e0[:, None] + i - n_sh[:, None])
+    return bid, g, i < n_rows[:, None]
+
+
+def scan_rows(w: SweepInputs):
+    """Each scan's rows in the kernel's order: its subgroup's shared rows,
+    then its own extras. Returns rows (n_pad, R, 8) and valid (n_pad, R)."""
+    bid, g, valid = _row_index(w)
+    blk = torch.clamp(bid - 1, min=0)
+    Kf, Kt = w.full.shape[0], w.tabs.shape[1]
+    rows = torch.where((bid == 0)[:, None, None],
+                       w.full[torch.clamp(g, max=Kf - 1)],
+                       w.tabs[blk[:, None], torch.clamp(g, max=Kt - 1)])
+    return rows, valid
+
+
+def rows_read(w: SweepInputs) -> int:
+    """Distinct table rows the sweep reads: each (table, row) that some
+    scan sweeps, counted once."""
+    bid, g, valid = _row_index(w)
+    stride = max(w.full.shape[0], w.tabs.shape[1])
+    ids = bid[:, None] * stride + g
+    return int(torch.unique(ids[valid]).numel())
+
+
+def _cross(ux, uy, vx, vy):
+    return ux * vy - uy * vx
+
+
+def _in_arc(vx, vy, px, py, qx, qy):
+    """v inside the counter-clockwise arc from p to q (under pi)."""
+    return (_cross(px, py, vx, vy) >= 0) & (_cross(vx, vy, qx, qy) >= 0)
+
+
+def skip_keep(w: SweepInputs, rows: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """The kernel's keep test (csrc/scan_kernel.cu), in its f32 operation
+    order: (n_pad, n_chunks, R) bool, True where the warp of beam chunk c
+    of a scan runs the hit test on row r (``rows``/``valid`` from
+    ``scan_rows``)."""
+    ox, oy = w.scal[:, 0:1], w.scal[:, 1:2]
+    nx, ny, c, tx, ty, wn = (rows[..., i] for i in range(6))
+    num = c - ox * nx - oy * ny
+    dist = torch.abs(num)
+    num = torch.where(dist < 1e-12, 1e-12, num)
+    uo = ox * tx + oy * ty + wn
+    t2 = tx * tx + ty * ty
+    drop = t2 == 0
+    always = ~drop & ((dist < _f32(SKIP_EPS))
+                      | (dist * dist * t2 < _f32(SKIP_RATIO ** -2)))
+    # directions to the row's ends u = 0 and u = 1: perp(q0), perp(q1),
+    # counter-clockwise from p to q
+    q0x, q0y = uo * nx + num * tx, uo * ny + num * ty
+    um1 = uo - 1.0
+    q1x, q1y = um1 * nx + num * tx, um1 * ny + num * ty
+    ccw = num < 0
+    px, py = torch.where(ccw, -q0y, -q1y), torch.where(ccw, q0x, q1x)
+    qx, qy = torch.where(ccw, -q1y, -q0y), torch.where(ccw, q1x, q0x)
+
+    # each chunk's sector: first to last beam, widened by SKIP_DELTA
+    dx, dy = _beam_dirs(w)
+    B = w.num_beams
+    first = torch.arange(0, B, CHUNK, device=dx.device)
+    last = torch.clamp(first + CHUNK, max=B) - 1
+    f0x, f0y, f1x, f1y = dx[:, first], dy[:, first], dx[:, last], dy[:, last]
+    cd, sd = _f32(np.cos(SKIP_DELTA)), _f32(np.sin(SKIP_DELTA))
+    s0x = (f0x * cd + f0y * sd)[..., None]
+    s0y = (f0y * cd - f0x * sd)[..., None]
+    s1x = (f1x * cd - f1y * sd)[..., None]
+    s1y = (f1y * cd + f1x * sd)[..., None]
+    skip = (f0x * f1x + f0y * f1y > 0) & (_cross(f0x, f0y, f1x, f1y) >= 0)
+
+    px, py, qx, qy = (v[:, None, :] for v in (px, py, qx, qy))
+    meets = (_in_arc(s0x, s0y, px, py, qx, qy)
+             | _in_arc(px, py, s0x, s0y, s1x, s1y))
+    arc = (~drop & ~always)[:, None, :]
+    keep = always[:, None, :] | (arc & meets)
+    return torch.where(skip[..., None], keep, True) & valid[:, None, :]
+
+
+def sweep_kept(w: SweepInputs) -> torch.Tensor:
+    """``sweep_plain`` restricted to the pairs the kernel's skip keeps:
+    (n_pad, B) ranges, equal to ``sweep_plain`` wherever the skip is
+    sound."""
+    rows, valid = scan_rows(w)
+    keep = skip_keep(w, rows, valid)
+    dx, dy = _beam_dirs(w)
+    ox, oy = w.scal[:, 0:1], w.scal[:, 1:2]
+    acc = torch.zeros_like(dx)
+    for ci, b0 in enumerate(range(0, w.num_beams, CHUNK)):
+        sl = slice(b0, b0 + CHUNK)
+        acc[:, sl] = _accumulate(acc[:, sl], rows, keep[:, ci], ox, oy,
+                                 dx[:, sl], dy[:, sl])
+    return torch.minimum(1.0 / torch.clamp(acc, min=1e-9), w.scal[:, 6:7])
+
+
+def pair_counts(w: SweepInputs) -> dict:
+    """(scan, beam, row) pair counts of one sweep: ``swept``, every pair
+    of the scans' row lists (what ``sweep_plain`` tests); ``kept``, the
+    pairs the kernel's skip tests; ``hit``, the pairs whose hit test passes
+    with s > 0 (the beam inside the row's arc: the least work);
+    ``missed``, hit pairs the skip drops, 0 when it is sound."""
+    rows, valid = scan_rows(w)
+    keep = skip_keep(w, rows, valid)
+    dx, dy = _beam_dirs(w)
+    ox, oy = w.scal[:, 0:1], w.scal[:, 1:2]
+    n_pad, R = valid.shape
+    B = w.num_beams
+    chunk_of = torch.arange(B, device=dx.device) // CHUNK
+    width = torch.bincount(chunk_of).to(torch.float64)
+    out = dict(swept=int(valid.sum()) * B,
+               kept=int((keep.to(torch.float64) * width[:, None]).sum()),
+               hit=0, missed=0)
+    ns = max(1, (1 << 24) // (B * min(R, 256)))
+    for i0 in range(0, n_pad, ns):
+        for r0 in range(0, R, 256):
+            sl, rs = slice(i0, i0 + ns), slice(r0, r0 + 256)
+            s, q = _hits(rows[sl, rs], ox[sl], oy[sl], dx[sl], dy[sl])
+            hit = (q >= 0) & (s > 0) & valid[sl, None, rs]
+            out["hit"] += int(hit.sum())
+            out["missed"] += int((hit & ~keep[sl][:, chunk_of, rs]).sum())
+    return out
+
+
+# --------------------------------------------------------------------------
 # CUDA kernel: build, bind, launch
 # --------------------------------------------------------------------------
 
@@ -342,8 +503,12 @@ def _load_cuda():
         lib = cuda_build.load(CUDA_SRC, CUDA_SO)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.scan_sweep.argtypes = [vp, vp, vp, vp, ci, vp, vp, vp, vp, ci,
-                                   vp, ci, ci, cf, cf, vp]
+                                   vp, ci, ci, cf, cf, ci, ci, ci, cf, cf,
+                                   cf, cf, vp]
         lib.scan_sweep.restype = ci
+        lib.scan_sweep_occupancy.argtypes = [ci, ci, ci, ci,
+                                             ctypes.POINTER(ci)]
+        lib.scan_sweep_occupancy.restype = ci
         _LIB = lib
     return _LIB
 
@@ -370,7 +535,16 @@ def _check_cuda_inputs(w: SweepInputs):
         raise ValueError("scan kernel inputs have inconsistent shapes")
 
 
-def _sweep_cuda(w: SweepInputs) -> torch.Tensor:
+def warps_per_block(num_beams: int) -> int:
+    """Beam chunks (warps) a block: all of a scan's chunks when they fit
+    MAX_WARPS, else an even split."""
+    n = -(-num_beams // CHUNK)
+    return -(-n // -(-n // MAX_WARPS))
+
+
+def _sweep_cuda(w: SweepInputs, skip: bool = True) -> torch.Tensor:
+    """The kernel on ``w``; ``skip=False`` turns its row skip off (every
+    pair tested, the same result), to measure what the skip saves."""
     _check_cuda_inputs(w)
     lib = _load_cuda()
     n_pad, B = w.scal.shape[0], w.num_beams
@@ -380,12 +554,29 @@ def _sweep_cuda(w: SweepInputs) -> torch.Tensor:
         w.scal.data_ptr(), w.fan.data_ptr(), w.full.data_ptr(),
         w.tabs.data_ptr(), w.tabs.shape[1], w.bid.data_ptr(),
         w.ng.data_ptr(), w.est.data_ptr(), w.ecnt.data_ptr(),
-        int(w.has_extras), out.data_ptr(), n_pad // SUB, B, w.inv_td,
-        w.bin_to_rad, stream)
+        int(w.has_extras), out.data_ptr(), n_pad, B, w.inv_td,
+        w.bin_to_rad, CHUNK, warps_per_block(B), int(skip), _f32(SKIP_EPS),
+        _f32(SKIP_RATIO ** -2), _f32(np.cos(SKIP_DELTA)),
+        _f32(np.sin(SKIP_DELTA)), stream)
     if err != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
     sweep.launches += 1
     return out
+
+
+def occupancy(n_scans: int, num_beams: int) -> dict:
+    """The kernel's launch at this shape on the current card: resident
+    blocks an SM, grid blocks, and waves (grid over resident blocks)."""
+    grid = ctypes.c_int(0)
+    per_sm = _load_cuda().scan_sweep_occupancy(
+        n_scans, num_beams, CHUNK, warps_per_block(num_beams),
+        ctypes.byref(grid))
+    if per_sm <= 0:
+        raise RuntimeError("scan kernel occupancy query failed")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(threads_per_block=32 * warps_per_block(num_beams),
+                blocks_per_sm=per_sm, grid_blocks=grid.value,
+                waves=grid.value / (per_sm * sms))
 
 
 def sweep(w: SweepInputs) -> torch.Tensor:

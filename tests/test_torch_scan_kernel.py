@@ -26,6 +26,7 @@ from f1tenth_gym_tpu.maps import map_path
 from f1tenth_gym_tpu.ops.pallas_scan import scan_pallas
 from f1tenth_gym_tpu.ops.pallas_scan import select_windows as j_select
 from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+from test_torch_scan_skip import assert_sound, rows_read_loop
 
 NB, TD = 256, 2000
 
@@ -178,12 +179,7 @@ def test_split_pack_vertex_leak(compact_split):
 
     m = compact_split
     tables = P.make_scan_tables(num_beams=1080, device="cpu")
-    poses = torch.tensor([
-        [1.215126, 12.3654785, 4.0489645], [2.1146092, 12.334983, 4.0489645],
-        [0.52762604, 12.5529785, 3.7279782], [1.3700552, 12.236256, 3.7279782],
-        [0.59012604, 11.3654785, 3.8178763], [1.293091, 11.927475, 3.8178763],
-        [0.84012604, 11.6154785, 3.6344597], [1.5654424, 12.148316, 3.6344597],
-    ], dtype=torch.float32)
+    poses = torch.tensor(LEAK_POSES, dtype=torch.float32)
     full = sk.scan(poses, m, tables, 1080, TD, culled=False, device="cpu")
     cull = sk.scan(poses, m, tables, 1080, TD, device="cpu")
     diff = (full != cull).nonzero().tolist()
@@ -191,6 +187,52 @@ def test_split_pack_vertex_leak(compact_split):
     march = lidar_ops.get_scan(poses[7:8], m, tables, 1080, TD)[0, 566]
     assert float(march) < 5.0 < float(full[7, 566]) - 12.0
     assert float(cull[7, 566]) > float(full[7, 566])
+
+
+LEAK_POSES = [
+    [1.215126, 12.3654785, 4.0489645], [2.1146092, 12.334983, 4.0489645],
+    [0.52762604, 12.5529785, 3.7279782], [1.3700552, 12.236256, 3.7279782],
+    [0.59012604, 11.3654785, 3.8178763], [1.293091, 11.927475, 3.8178763],
+    [0.84012604, 11.6154785, 3.6344597], [1.5654424, 12.148316, 3.6344597],
+]
+
+
+def test_skip_sound_split_pack(compact_split):
+    """The CUDA kernel's row skip (tests/test_torch_scan_skip.py) on the
+    split pack at 1080 beams: clustered subgroups whose scans sweep their
+    extras, and the subgroup of test_split_pack_vertex_leak."""
+    m = compact_split
+    tables = P.make_scan_tables(num_beams=1080, device="cpu")
+    poses = np.concatenate([_clustered(m, 4, np.random.default_rng(21), 1.5),
+                            np.asarray(LEAK_POSES, np.float32)])
+    for culled in (True, False):
+        w = sk.prepare_map(torch.as_tensor(poses), m, tables, 1080, TD,
+                           culled=culled)
+        if culled:
+            assert int(w.ecnt.sum()) > 0
+        assert_sound(w)
+
+
+def test_rows_read_split_pack(compact_split):
+    """``rows_read`` on the split pack: shared rows and extras, each
+    (table, row) once."""
+    m = compact_split
+    tables = P.make_scan_tables(num_beams=NB, device="cpu")
+    poses = np.concatenate([_clustered(m, 4, np.random.default_rng(21), 1.5),
+                            np.asarray(LEAK_POSES, np.float32)])
+    w = sk.prepare_map(torch.as_tensor(poses), m, tables, NB, TD)
+    assert int(w.ecnt.sum()) > 0
+    assert sk.rows_read(w) == rows_read_loop(w)
+
+
+def test_skip_sound_berlin_full():
+    m = P.load_map(map_path("berlin"), extract_segments=True, device="cpu")
+    tables = P.make_scan_tables(num_beams=1080, device="cpu")
+    poses = P.uniform_pose_sampler(m, clearance=0.3)(
+        P.make_generator("cpu", 3), (48,))
+    w = sk.prepare_map(poses, m, tables, 1080, TD, culled=False)
+    assert int((w.bid > 0).sum()) == 0
+    assert_sound(w)
 
 
 def test_select_windows_matches_jax(compact_split):
