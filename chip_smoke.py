@@ -50,6 +50,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              scan kernel): reset, 200 gap-follow steps with one kernel
              launch each, steps per second; then a few steps with the
              segments engine.
+11. ppo     — the learner of f1tenth_gym_tpu_torch.train_ppo at the
+             configuration of examples/train_ppo.py: compact culled, 1024
+             one-agent envs x 1080 beams, float32, engine "pallas", scan
+             noise on, PPOConfig() widths (hidden 256, 64 pooled beams,
+             32 rollout steps, 4 epochs x 4 minibatches); one warm-up and
+             PPO_ITERS timed iterations with one scan-kernel launch a
+             rollout step and none of the overlay, finite metrics, a
+             changed policy, scans in range; then the TrainState saved,
+             loaded into a freshly built learner, and one more iteration
+             from both: bit-identical parameters and env states;
+12. planner — pure pursuit: the 500-step closed loop of
+             tests/test_planner.py on the card (example_map, float64,
+             march, no noise) within 1e-6 of the reference's actions and
+             poses; then ``batched_policy`` on example_map's raceline
+             through ``rollout(collect=False)``, PLAN_STEPS steps of the
+             main path's 4096 x 2 x 1080 envs (its culled pack and start
+             poses, engine "kernel"), one scan-kernel launch a step.
 
 A kernel's time is the CUDA-event time a launch of a CUDA graph of
 launches (``kernel_ms``), printed beside the eager launches' time and the
@@ -59,9 +76,12 @@ line. Exits non-zero without a result when no CUDA device is present.
 """
 
 import concurrent.futures
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,6 +102,10 @@ OVERLAY_ATOL = 2e-3         # overlay kernel vs ray_cast_opponents, metres
 OVERLAY_CAP = 1e-6          # beams allowed beyond it, share of beams
 SEG_ENVS, SEG_STEPS = 64, 4
 ENV_STEPS = 200             # F110Env gap-follow steps
+PPO_MAP, PPO_ENVS, PPO_ITERS = "compact", 1024, 3  # examples/train_ppo.py
+PLAN_STEPS = 64             # batched pure-pursuit rollout steps
+CLOSED_LOOP_ATOL = 1e-6     # tests/test_planner.py::test_closed_loop_parity
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(phase, **kw):
@@ -402,6 +426,188 @@ def f110env_phase(start, dev):
          segments_min_range=float(obs["scans"].min()))
 
 
+def scans_in_range(s, tables, label):
+    """Every scan finite and in (0, max_range + 5 sigma]: the noise is
+    added after the clamp, as in the reference. An env that an auto-reset
+    has just replaced holds init_state's zero scans (steps 0) and is left
+    out of the lower bound."""
+    sc, sigma = s.scans, float(tables.scan_std)
+    stepped = s.steps > 0
+    require(bool(torch.isfinite(sc).all()), f"{label}: non-finite scans")
+    require(float(sc.max()) <= float(tables.max_range) + 5 * sigma
+            and bool((sc[stepped] > 0).all()),
+            f"{label}: scans out of (0, max_range + 5 sigma]: min "
+            f"{float(sc[stepped].min())}, max {float(sc.max())}")
+    return dict(min=float(sc[stepped].min()), max=float(sc.max()),
+                envs_just_reset=int((~stepped).sum()))
+
+
+def ppo_phase(dev, card_name):
+    """The learner of train_ppo at examples/train_ppo.py's configuration
+    (module docstring, phase 11). Returns K1's launches in the timed
+    iterations."""
+    from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+    from f1tenth_gym_tpu_torch.state import SimState
+    from f1tenth_gym_tpu_torch.train_ppo import make_learner
+    from f1tenth_gym_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+
+    t_phase = time.time()
+    ppo, ts = make_learner(PPO_MAP, PPO_ENVS, BEAMS, "pallas", dev)
+    map_s = time.time() - t_phase
+    T = ppo.pc.rollout_steps
+    ts, _ = ppo.train_step(ts)  # warm-up
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in ts.net.parameters()]
+    sk.sweep.launches = 0
+    ok.overlay.launches = 0
+    iters = []
+    for _ in range(PPO_ITERS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        ts, traj, value_T = ppo.rollout(ts)
+        ev[1].record()
+        ts, metrics = ppo.update(ts, traj, value_T)
+        ev[2].record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        met = {k: float(v) for k, v in metrics.items()}
+        require(all(np.isfinite(v) for v in met.values()),
+                f"ppo: non-finite metrics {met}")
+        iters.append(dict(seconds=host_s,
+                          env_steps_per_s=PPO_ENVS * T / host_s,
+                          rollout_ms=ev[0].elapsed_time(ev[1]),
+                          update_ms=ev[1].elapsed_time(ev[2]), **met))
+    launches = sk.sweep.launches
+    require(launches == T * PPO_ITERS,
+            f"ppo: {launches} kernel launches in {PPO_ITERS} iterations of "
+            f"{T} steps")
+    require(ok.overlay.launches == 0, "ppo: the rollout launched the overlay")
+    require(any(not torch.equal(a, b) for a, b in
+                zip(before, ts.net.parameters())), "ppo: the policy is unchanged")
+    scan_stats = scans_in_range(ts.env_states, ppo.tables, "ppo")
+    # K1 at the rollout's shape, from the last step's poses
+    x = ts.env_states.x
+    w = sk.prepare_map(torch.stack([x[..., 0], x[..., 1], x[..., 4]],
+                                   -1).reshape(-1, 3), ppo.map_data,
+                       ppo.tables, BEAMS, THETA_DIS)
+    k = sk.sweep(w)
+    require(torch.equal(k, sk.sweep_plain(w)), "ppo shape: kernel != plain")
+    k1 = kernel_ms(lambda: sk.sweep(w), 50)
+
+    # resume: the TrainState into a freshly built learner, then one more
+    # iteration from both
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_pytree(os.path.join(tmp, "train_state"), ts)
+        ppo_b, ts_b = make_learner(PPO_MAP, PPO_ENVS, BEAMS, "pallas", dev)
+        ts_b = load_pytree(path, target=ts_b)
+    ts, _ = ppo.train_step(ts)
+    ts_b, _ = ppo_b.train_step(ts_b)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in
+                zip(ts.net.parameters(), ts_b.net.parameters())),
+            "ppo: resumed parameters differ")
+    for f in dataclasses.fields(SimState):
+        a, b = getattr(ts.env_states, f.name), getattr(ts_b.env_states, f.name)
+        require(a is None and b is None or torch.equal(a, b),
+                f"ppo: resumed env state {f.name} differs")
+    emit("ppo", card=card_name, map=PPO_MAP, envs=PPO_ENVS, agents=1,
+         beams=BEAMS, hidden=ppo.pc.hidden, obs_beams=ppo.pc.obs_beams,
+         rollout_steps=T, epochs=ppo.pc.epochs,
+         minibatches=ppo.pc.minibatches, iterations=iters,
+         env_steps_per_s=[i["env_steps_per_s"] for i in iters],
+         kernel_launches=launches, overlay_launches=ok.overlay.launches,
+         scans=scan_stats, k1_ms=k1, resume_bit_identical=True,
+         map_seconds=map_s,
+         seconds=time.time() - t_phase)
+    return launches
+
+
+def planner_phase(m, tables, poses, dev, card_name):
+    """Pure pursuit on the card (module docstring, phase 12). Returns K1's
+    launches in the batched rollout."""
+    import f1tenth_gym_tpu_torch as P
+    from f1tenth_gym_tpu_torch.maps import map_path
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+    from f1tenth_gym_tpu_torch.parallel import rollout
+    from f1tenth_gym_tpu_torch.planning import PurePursuitPlanner, pure_pursuit_plan
+    from f1tenth_gym_tpu_torch.utils.waypoints import load_waypoints
+
+    t_phase = time.time()
+    d = np.load(os.path.join(ROOT, "tests", "fixtures", "closed_loop.npz"))
+    tlad, vgain = float(d["tlad"]), float(d["vgain"])
+    f64 = torch.float64
+    cfg = P.SimConfig(num_agents=1, scan_noise=False, dtype="float64",
+                      scan_engine="march")
+    params = P.VehicleParams.create(dtype=f64, device=dev)
+    tables64 = P.make_scan_tables(dtype=f64, device=dev)
+    m64 = P.load_map(map_path("example_map"), dtype=f64, device=dev)
+    wpts = torch.as_tensor(d["wpts_xyv"], device=dev)
+    state, obs, *_ = P.env_reset(torch.as_tensor(d["start"], device=dev)[None],
+                                 params, m64, tables64, cfg, 0.01)
+    acts, seen = [], []
+    for _ in range(d["poses"].shape[0]):
+        speed, steer = pure_pursuit_plan(
+            obs["poses_x"][0, 0], obs["poses_y"][0, 0],
+            obs["poses_theta"][0, 0], wpts, tlad, vgain, 0.17145 + 0.15875)
+        acts.append(torch.stack([steer, speed]))
+        state, obs, *_ = P.env_step(state, acts[-1].reshape(1, 1, 2), params,
+                                    m64, tables64, cfg, 0.01)
+        seen.append(torch.stack([obs["poses_x"][0, 0], obs["poses_y"][0, 0],
+                                 obs["poses_theta"][0, 0]]))
+    err_a = float(np.abs(torch.stack(acts).cpu().numpy() - d["actions"]).max())
+    err_p = float(np.abs(torch.stack(seen).cpu().numpy() - d["poses"]).max())
+    require(err_a <= CLOSED_LOOP_ATOL and err_p <= CLOSED_LOOP_ATOL,
+            f"planner closed loop: actions {err_a}, poses {err_p} from the "
+            "reference's")
+    loop_s = time.time() - t_phase
+
+    # batched pure pursuit on the main path's envs
+    E, A = poses.shape[:2]
+    planner = PurePursuitPlanner(
+        load_waypoints(map_path("example_map")[:-5] + "_waypoints.csv"),
+        device=dev)
+    policy = planner.batched_policy(tlad, vgain)
+    cfg = P.SimConfig(num_agents=A, num_beams=BEAMS, dtype="float32",
+                      scan_engine="kernel")
+    params = P.VehicleParams.create(device=dev)
+    gen = P.make_generator(dev, 0)
+    states, *_ = P.batch_reset(poses, params, m, tables, cfg, 0.01,
+                               generator=gen, device=dev)
+    astep = P.make_autoreset_step(params, m, tables, cfg, 0.01,
+                                  reset_to_start=True, generator=gen,
+                                  device=dev)
+
+    def drive(s, n):
+        return rollout(s, policy, n, params, m, tables, cfg, 0.01, gen,
+                       step_fn=astep, collect=False)
+
+    states, _ = drive(states, 2)  # warm-up
+    torch.cuda.synchronize()
+    sk.sweep.launches = 0
+    t0 = time.perf_counter()
+    s, (reward, dones) = drive(states, PLAN_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = sk.sweep.launches
+    require(launches == PLAN_STEPS,
+            f"planner: {launches} kernel launches in {PLAN_STEPS} steps")
+    require(bool(torch.isfinite(reward)), "planner: non-finite reward")
+    speed = float(s.x[..., 3].mean())
+    require(speed > 0.1, f"planner: the cars do not drive ({speed} m/s)")
+    emit("planner", card=card_name, closed_loop_steps=d["poses"].shape[0],
+         closed_loop_max_action_err=err_a, closed_loop_max_pose_err=err_p,
+         closed_loop_seconds=loop_s, envs=E, agents=A, beams=BEAMS,
+         steps=PLAN_STEPS, seconds=elapsed,
+         env_steps_per_s=E * PLAN_STEPS / elapsed, kernel_launches=launches,
+         dones=int(dones), mean_speed=speed,
+         scans=scans_in_range(s, tables, "planner"),
+         phase_seconds=time.time() - t_phase)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -674,16 +880,14 @@ def main():
     dones = int(dones)
     require(launches == STEPS, f"{launches} kernel launches in {STEPS} steps")
     require(ok.overlay.launches == 0, "the racing step launched the overlay")
-    sc = s.scans
-    require(bool(torch.isfinite(sc).all()), "non-finite scans")
-    require(bool((sc[s.steps > 0] > 0).all())
-            and float(sc.max()) <= 30.0 + 5 * 0.01, "scans out of (0, 30+5s]")
+    scan_stats = scans_in_range(s, tables, "main path")
     require(dones > 0 and bool((s.steps < int(s.steps.max())).any()),
             "no env was done and reset")
     rate = ENVS * STEPS / elapsed
     emit("main_path", envs=ENVS, agents=AGENTS, beams=BEAMS, steps=STEPS,
          seconds=elapsed, env_steps_per_s=rate, dones=dones,
-         kernel_launches=launches, overlay_launches=ok.overlay.launches)
+         kernel_launches=launches, overlay_launches=ok.overlay.launches,
+         scans=scan_stats)
 
     # ---- 9. kernel timing at the main path's shapes, mid sort period
     s, _ = drive(s, SORT_PERIOD // 2)
@@ -743,12 +947,18 @@ def main():
     # ---- 10. the reference-compatible env on the card
     f110env_phase(poses_ex[0].cpu().numpy(), dev)
 
+    # ---- 11. the PPO learner; 12. pure pursuit
+    ppo_launches = ppo_phase(dev, card_name)
+    planner_launches = planner_phase(m_ex, tables, poses_ex, dev, card_name)
+
     print(json.dumps({"kernels": [{
         "name": "scan_kernel",
         "route": "cuda",
         "source": "f1tenth_gym_tpu_torch/csrc/scan_kernel.cu",
         "replaces": "f1tenth_gym_tpu/ops/pallas_scan.py:168",
         "launches": launches,
+        "ppo_launches": ppo_launches,
+        "planner_launches": planner_launches,
         "max_abs_err": max_err,
         "ms": t_culled["ms"],
         "ms_full": t_full["ms"],

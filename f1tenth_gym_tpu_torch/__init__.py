@@ -28,6 +28,7 @@ from f1tenth_gym_tpu_torch.parallel.vector import (
 )
 from f1tenth_gym_tpu_torch.scan_sim import ScanSimulator2D
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables, SimState, VehicleParams
+from f1tenth_gym_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from f1tenth_gym_tpu_torch.utils.map_loader import load_map, make_map_data
 
 __all__ = [
@@ -48,11 +49,13 @@ __all__ = [
     "env_step",
     "init_state",
     "load_map",
+    "load_pytree",
     "make_autoreset_step",
     "make_generator",
     "make_map_data",
     "make_scan_tables",
     "resolve_device",
+    "save_pytree",
     "sim_step",
     "sort_envs_for_locality",
     "uniform_pose_sampler",

@@ -1,0 +1,404 @@
+"""PPO learner over a batch of envs on one device.
+
+Port of ``f1tenth_gym_tpu/parallel/ppo.py``: the same ``PPOConfig``, the
+same actor-critic MLP, per-agent rewards, values and GAE (a crashing
+opponent never pollutes the ego's gradient), multi-epoch minibatch
+updates, entropy bonus and advantage normalization. The JAX package jits
+the whole iteration into one program over a mesh; here it is eager torch
+on one device (sharding and DDP wait for ``torch.distributed``).
+
+Where the port follows flax and optax rather than torch's defaults:
+
+* ``ActorCritic`` keeps its ``Dense`` weights and biases in float32 (flax's
+  default ``param_dtype``) and computes in the input's dtype; its
+  ``pi_log_std`` is in the sim dtype. A float64 input therefore meets
+  float32 weights cast up, and autograd casts their gradients back down.
+* The kernels are drawn as flax's ``lecun_normal``: fan-in variance
+  scaling, a normal truncated at +-2 sigma with sigma =
+  sqrt(1/fan_in)/0.87962566103423978; biases are zero, ``pi_log_std``
+  -0.5. Every draw comes from an explicit ``torch.Generator``.
+* ``ClippedAdam`` is ``optax.chain(clip_by_global_norm, adam)``: the
+  gradients are left alone when their global norm is below the limit and
+  scaled by limit/norm otherwise (``clip_grad_norm_`` divides by norm +
+  1e-6 instead), then Adam with eps outside the square root.
+* Advantages are normalized by the population std (``jnp.std``, ddof 0).
+
+The policy noise and the minibatch permutations come from the learner's
+generator (``TrainState.generator``); the env's scan noise from the step's
+own generator: ``make_autoreset_step``'s, or one that ``PPO`` owns when no
+``step_fn`` is given. ``TrainState.env_generator`` is that generator, so
+that a checkpoint of the ``TrainState`` resumes bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from f1tenth_gym_tpu_torch.config import DEFAULT_SEED, SimConfig, resolve_device
+from f1tenth_gym_tpu_torch.parallel.vector import batch_step, make_generator
+from f1tenth_gym_tpu_torch.state import MapData, ScanTables, SimState, VehicleParams
+
+# flax's variance_scaling(..., "truncated_normal"): the std of a unit
+# normal truncated at +-2
+_TRUNC_STD = 0.87962566103423978
+_LOG_2PI = math.log(2.0 * np.pi)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    obs_beams: int = 64          # scan downsample size fed to the net
+    hidden: int = 256
+    rollout_steps: int = 32
+    epochs: int = 4
+    minibatches: int = 4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    vf_coef: float = 0.5
+    ent_coef: float = 0.01
+    lr: float = 3e-4
+    max_grad_norm: float = 0.5
+    # reward shaping: progress (speed) minus crash penalty
+    speed_reward: float = 1.0
+    crash_penalty: float = 10.0
+
+
+class _Dense(nn.Module):
+    """flax ``nn.Dense``: float32 parameters, computed in the input's
+    dtype. ``weight`` is (out, in), the transpose of flax's kernel."""
+
+    def __init__(self, n_in: int, n_out: int, dev: torch.device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((n_out, n_in),
+                                               dtype=torch.float32, device=dev))
+        self.bias = nn.Parameter(torch.zeros((n_out,), dtype=torch.float32,
+                                             device=dev))
+
+    def reset_parameters(self, generator: torch.Generator):
+        std = math.sqrt(1.0 / self.weight.shape[1]) / _TRUNC_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weight, std=std, a=-2.0 * std,
+                                  b=2.0 * std, generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class ActorCritic(nn.Module):
+    """Two tanh layers of ``hidden`` units, a Gaussian policy head with a
+    state-independent log std, and a value head.
+
+    ``forward(x) -> (mean, log_std, value)`` with ``log_std`` broadcast
+    to ``mean``'s shape. The parameters hold uninitialized memory until
+    ``reset_parameters(generator)`` or a load fills them."""
+
+    def __init__(self, obs_dim: int, hidden: int, act_dim: int = 2,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.fc1 = _Dense(obs_dim, hidden, dev)
+        self.fc2 = _Dense(hidden, hidden, dev)
+        self.pi_mean = _Dense(hidden, act_dim, dev)
+        self.vf = _Dense(hidden, 1, dev)
+        self.pi_log_std = nn.Parameter(torch.full((act_dim,), -0.5,
+                                                  dtype=dtype, device=dev))
+
+    def reset_parameters(self, generator: torch.Generator) -> "ActorCritic":
+        for layer in (self.fc1, self.fc2, self.pi_mean, self.vf):
+            layer.reset_parameters(generator)
+        with torch.no_grad():
+            self.pi_log_std.fill_(-0.5)
+        return self
+
+    def forward(self, x):
+        h = torch.tanh(self.fc1(x))
+        h = torch.tanh(self.fc2(h))
+        mean = self.pi_mean(h)
+        value = self.vf(h)[..., 0]
+        return mean, self.pi_log_std.expand(mean.shape), value
+
+
+def featurize(obs: Dict[str, torch.Tensor], tables: ScanTables,
+              obs_beams: int) -> torch.Tensor:
+    """obs dict -> flat features (..., obs_beams + 2) for each agent.
+
+    Scans mean-pool down to obs_beams and normalize by max_range; append
+    normalized speed and yaw rate.
+    """
+    scans = obs["scans"]
+    B = scans.shape[-1]
+    stride = B // obs_beams
+    pooled = scans[..., : obs_beams * stride]
+    pooled = pooled.reshape(*pooled.shape[:-1], obs_beams, stride).mean(-1)
+    pooled = pooled / tables.max_range
+    v = obs["linear_vels_x"][..., None] / 10.0
+    w = obs["ang_vels_z"][..., None] / 5.0
+    return torch.cat([pooled, v, w], -1)
+
+
+def gaussian_logp(mean, log_std, action):
+    var = torch.exp(2.0 * log_std)
+    return torch.sum(
+        -0.5 * ((action - mean) ** 2 / var + 2.0 * log_std + _LOG_2PI), -1)
+
+
+def scale_actions(raw, params: VehicleParams):
+    """Map network outputs to [s_min, s_max] steer x [0, v_max] speed."""
+    steer_lim = torch.stack([params.s_min.max(), params.s_max.max()]).abs().max()
+    v_hi = params.v_max.max()
+    steer = torch.tanh(raw[..., 0]) * steer_lim
+    speed = (torch.tanh(raw[..., 1]) * 0.5 + 0.5) * v_hi
+    return torch.stack([steer, speed], -1)
+
+
+class ClippedAdam:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr))`` on the
+    ``.grad`` of named parameters, updating them in place.
+
+    The global norm is the square root of the sum of each gradient's
+    squares, added in the sorted order of the names (flax's leaf order),
+    each term promoting the total to the wider dtype, as optax's Python
+    ``sum`` does. Adam keeps its moments in each parameter's dtype and its
+    step count as an int64 tensor on the host.
+    """
+
+    def __init__(self, named_params: Dict[str, torch.Tensor], lr: float,
+                 max_grad_norm: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.params = dict(sorted(named_params.items()))
+        self.lr, self.max_grad_norm = lr, max_grad_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = torch.zeros((), dtype=torch.int64)
+        self.mu = {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for k, p in self.params.items()}
+        self.nu = {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for k, p in self.params.items()}
+
+    def zero_grad(self):
+        for p in self.params.values():
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self):
+        grads = {k: p.grad for k, p in self.params.items()}
+        # optax's sum: in leaf order, each 0-d term promoting the total
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        keep = norm < self.max_grad_norm
+        self.count += 1
+        n = int(self.count)
+        bc1 = 1.0 - self.b1 ** n
+        bc2 = 1.0 - self.b2 ** n
+        for k, p in self.params.items():
+            g = grads[k]
+            g = torch.where(keep, g, (g / norm.to(g.dtype)) * self.max_grad_norm)
+            mu = (1.0 - self.b1) * g + self.b1 * self.mu[k]
+            nu = (1.0 - self.b2) * (g ** 2) + self.b2 * self.nu[k]
+            self.mu[k], self.nu[k] = mu, nu
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            p.add_(update * -self.lr)
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"count": self.count.clone(), "mu": dict(self.mu),
+                "nu": dict(self.nu)}
+
+    def load_state_dict(self, state: Dict[str, object]):
+        self.count = torch.as_tensor(state["count"], dtype=torch.int64).clone()
+        for moments, name in ((self.mu, "mu"), (self.nu, "nu")):
+            for k in moments:
+                moments[k] = state[name][k].to(moments[k].device,
+                                               moments[k].dtype).clone()
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The learner's state. ``net`` and ``opt`` are updated in place by
+    ``PPO.train_step``; ``env_states`` is replaced. ``generator`` draws the
+    policy noise and the permutations; ``env_generator`` is the env
+    step's own (None when the step has none)."""
+
+    net: ActorCritic
+    opt: ClippedAdam
+    env_states: SimState
+    generator: torch.Generator
+    env_generator: Optional[torch.Generator] = None
+
+
+class PPO:
+    """PPO over a batched env on ``device`` (default: the card)."""
+
+    def __init__(
+        self,
+        params: VehicleParams,
+        map_data: MapData,
+        tables: ScanTables,
+        cfg: SimConfig,
+        timestep: float,
+        ppo_cfg: PPOConfig = PPOConfig(),
+        step_fn: Optional[Callable] = None,  # e.g. make_autoreset_step's
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.params = params
+        self.map_data = map_data
+        self.tables = tables
+        self.cfg = cfg
+        self.timestep = timestep
+        self.pc = ppo_cfg
+        self.step_fn = step_fn
+        if step_fn is None:
+            self.env_generator = make_generator(self.device, DEFAULT_SEED)
+            # on the card once, so that no step copies it there
+            self._timestep = torch.as_tensor(timestep, dtype=cfg.torch_dtype,
+                                             device=self.device)
+        else:
+            self.env_generator = getattr(step_fn, "generator", None)
+
+    def _step(self, states, actions):
+        if self.step_fn is not None:
+            return self.step_fn(states, actions)
+        return batch_step(states, actions, self.params, self.map_data,
+                          self.tables, self.cfg, self._timestep,
+                          self.env_generator)
+
+    # ------------------------------------------------------------- init
+    def init(self, env_states: SimState,
+             generator: torch.Generator) -> TrainState:
+        """Draw the net from ``generator``, which then stays the learner's."""
+        net = ActorCritic(self.pc.obs_beams + 2, self.pc.hidden,
+                          dtype=self.cfg.torch_dtype,
+                          device=self.device).reset_parameters(generator)
+        opt = ClippedAdam(dict(net.named_parameters()), self.pc.lr,
+                          self.pc.max_grad_norm)
+        return TrainState(net, opt, env_states, generator, self.env_generator)
+
+    # ------------------------------------------------------------- rollout
+    def _obs_of(self, states: SimState):
+        return {
+            "scans": states.scans,
+            "linear_vels_x": states.x[..., 3],
+            "ang_vels_z": states.x[..., 5],
+        }
+
+    def _policy(self, net, generator, feats):
+        mean, log_std, value = net(feats)
+        noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                            device=mean.device)
+        raw = mean + torch.exp(log_std) * noise
+        logp = gaussian_logp(mean, log_std, raw)
+        return raw, logp, value
+
+    def _shaped_reward(self, states: SimState, done):
+        """Progress-style shaping, PER AGENT (E, A): forward speed minus
+        crash penalty. With an auto-reset step the states of done envs are
+        already fresh (speed 0, no collision), as in the JAX package."""
+        v = states.x[..., 3]
+        crash = states.collisions
+        return (self.pc.speed_reward * v * self.timestep
+                - self.pc.crash_penalty * crash)
+
+    @torch.no_grad()
+    def rollout(self, ts: TrainState):
+        """Collect rollout_steps transitions for every agent of each env.
+
+        Returns (ts', traj, value_T): traj holds (T, E, A, ...) tensors
+        ``feats``, ``raw``, ``logp``, ``value``, ``reward`` and (T, E)
+        ``done``; value_T bootstraps the last state."""
+        pc = self.pc
+        states = ts.env_states
+        out = {k: [] for k in ("feats", "raw", "logp", "value", "reward",
+                               "done")}
+        for _ in range(pc.rollout_steps):
+            feats = featurize(self._obs_of(states), self.tables, pc.obs_beams)
+            raw, logp, value = self._policy(ts.net, ts.generator, feats)
+            actions = scale_actions(raw, self.params)
+            states, _, _, done, _ = self._step(states, actions)
+            reward = self._shaped_reward(states, done)
+            for k, v in (("feats", feats), ("raw", raw), ("logp", logp),
+                         ("value", value), ("reward", reward), ("done", done)):
+                out[k].append(v)
+        traj = {k: torch.stack(v) for k, v in out.items()}
+        feats_T = featurize(self._obs_of(states), self.tables, pc.obs_beams)
+        _, _, value_T = ts.net(feats_T)
+        return dataclasses.replace(ts, env_states=states), traj, value_T
+
+    # ------------------------------------------------------------- losses
+    def _gae(self, traj, value_T):
+        pc = self.pc
+        values = traj["value"]  # (T, E, A)
+        rewards = traj["reward"]  # (T, E, A)
+        dones = traj["done"].to(values.dtype)[..., None]  # (T, E, 1)
+        gae = torch.zeros_like(value_T)
+        next_value = value_T
+        advs = [None] * values.shape[0]
+        for t in reversed(range(values.shape[0])):
+            delta = (rewards[t] + pc.gamma * next_value * (1 - dones[t])
+                     - values[t])
+            gae = delta + pc.gamma * pc.gae_lambda * (1 - dones[t]) * gae
+            advs[t] = gae
+            next_value = values[t]
+        advs = torch.stack(advs)
+        return advs, advs + values
+
+    def _loss(self, net, batch):
+        pc = self.pc
+        mean, log_std, value = net(batch["feats"])
+        logp = gaussian_logp(mean, log_std, batch["raw"])
+        ratio = torch.exp(logp - batch["logp"])
+        adv = batch["adv"]  # (N, A): per-agent advantages
+        pg1 = ratio * adv
+        pg2 = torch.clamp(ratio, 1 - pc.clip_eps, 1 + pc.clip_eps) * adv
+        pg_loss = -torch.minimum(pg1, pg2).mean()
+        v_loss = 0.5 * ((value - batch["ret"]) ** 2).mean()
+        ent = torch.sum(log_std + 0.5 * math.log(2 * np.pi * np.e), -1).mean()
+        total = pg_loss + pc.vf_coef * v_loss - pc.ent_coef * ent
+        return total, dict(pg=pg_loss, vf=v_loss, ent=ent)
+
+    # ------------------------------------------------------------- train
+    def update(self, ts: TrainState, traj, value_T):
+        """GAE, then epochs x minibatch clipped-PPO updates of ``ts.net``
+        (in place). Returns (ts, metrics) with 0-d tensor metrics."""
+        pc = self.pc
+        advs, returns = self._gae(traj, value_T)
+        advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+
+        T, E, A = advs.shape
+        flat = dict(
+            feats=traj["feats"].reshape(T * E, *traj["feats"].shape[2:]),
+            raw=traj["raw"].reshape(T * E, *traj["raw"].shape[2:]),
+            logp=traj["logp"].reshape(T * E, *traj["logp"].shape[2:]),
+            adv=advs.reshape(T * E, A),
+            ret=returns.reshape(T * E, A),
+        )
+        mb_size = (T * E) // pc.minibatches
+        epoch_losses = []
+        for _ in range(pc.epochs):
+            perm = torch.randperm(T * E, generator=ts.generator,
+                                  device=advs.device)
+            losses = []
+            for i in range(pc.minibatches):
+                take = perm[i * mb_size:(i + 1) * mb_size]
+                batch = {k: v[take] for k, v in flat.items()}
+                ts.opt.zero_grad()
+                loss, _ = self._loss(ts.net, batch)
+                loss.backward()
+                ts.opt.step()
+                losses.append(loss.detach())
+            epoch_losses.append(torch.stack(losses).mean())
+        metrics = dict(
+            loss=torch.stack(epoch_losses).mean(),
+            mean_reward=traj["reward"].mean(),
+            crash_rate=traj["done"].to(traj["reward"].dtype).mean(),
+        )
+        return ts, metrics
+
+    def train_step(self, ts: TrainState):
+        """One PPO iteration: rollout, then ``update``."""
+        return self.update(*self.rollout(ts))

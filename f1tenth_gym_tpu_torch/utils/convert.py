@@ -7,6 +7,8 @@ containers on a chosen device, so both packages can be fed identical
 inputs. A batched JAX ``SimState`` carries the env axis E from ``vmap``
 as the leading axis of every leaf; its PRNG ``key`` has no counterpart
 here (the port draws from a ``torch.Generator``) and is dropped.
+``actor_critic_from_flax`` and ``actor_critic_to_numpy`` carry a PPO
+policy's weights across (``parallel/ppo.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from f1tenth_gym_tpu_torch.config import resolve_device
+from f1tenth_gym_tpu_torch.parallel.ppo import ActorCritic
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables, SimState, VehicleParams
 
 
@@ -62,3 +65,40 @@ def to_numpy(obj) -> Dict[str, np.ndarray]:
         v = getattr(obj, f.name)
         out[f.name] = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
     return out
+
+
+_DENSE_LAYERS = ("fc1", "fc2", "pi_mean", "vf")
+
+
+def actor_critic_from_flax(params, device=None):
+    """The port's ``ActorCritic`` holding the weights of a flax
+    ``ActorCritic``: ``params`` is its nested dict of numpy arrays,
+    ``{'params': {'fc1': {'kernel', 'bias'}, 'fc2': ..., 'pi_mean': ...,
+    'vf': ..., 'pi_log_std'}}``. A flax kernel is (in, out), so each
+    ``weight`` is its transpose; ``pi_log_std`` keeps its dtype, which
+    becomes the module's sim dtype."""
+    p = params["params"]
+    log_std = np.asarray(p["pi_log_std"])
+    kernel = np.asarray(p["fc1"]["kernel"])
+    net = ActorCritic(kernel.shape[0], kernel.shape[1],
+                      act_dim=log_std.shape[0],
+                      dtype=getattr(torch, log_std.dtype.name), device=device)
+    with torch.no_grad():
+        for name in _DENSE_LAYERS:
+            layer = getattr(net, name)
+            layer.weight.copy_(torch.from_numpy(
+                np.asarray(p[name]["kernel"]).T.copy()))
+            layer.bias.copy_(torch.from_numpy(np.array(p[name]["bias"])))
+        net.pi_log_std.copy_(torch.from_numpy(log_std.copy()))
+    return net
+
+
+def actor_critic_to_numpy(net) -> Dict[str, Dict]:
+    """The inverse of ``actor_critic_from_flax``: the flax parameter dict
+    of ``net`` as numpy arrays (the layout ``save_pytree`` of a flax
+    ``net_params`` writes)."""
+    p = {name: {"kernel": getattr(net, name).weight.detach().cpu().numpy().T,
+                "bias": getattr(net, name).bias.detach().cpu().numpy()}
+         for name in _DENSE_LAYERS}
+    p["pi_log_std"] = net.pi_log_std.detach().cpu().numpy()
+    return {"params": p}
