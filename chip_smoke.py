@@ -66,7 +66,36 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              poses; then ``batched_policy`` on example_map's raceline
              through ``rollout(collect=False)``, PLAN_STEPS steps of the
              main path's 4096 x 2 x 1080 envs (its culled pack and start
-             poses, engine "kernel"), one scan-kernel launch a step.
+             poses, engine "kernel"), one scan-kernel launch a step;
+13. multi_track — the 16-track world of examples/domain_randomization.py
+             (seed 0; its culling pack, neighborhood 2, 2.5 m tiles, windows
+             capped at 64 groups, is built in a process of its own on the
+             CPU from the start of the run, and its seconds printed): the
+             scan kernel against its plain version bit for bit, culled and
+             full, on the sampler's 8192 poses after the arc sort, culled ==
+             full except on vertex leaks (at most LEAK_CAP), no hit pair
+             dropped by the row skip; the share of subgroups that fall back
+             to the full table under the arc sort, the square-block sort and
+             none; tracks 0 and 15 from three racing-line poses, in the world
+             and on the track's own map: the marching engine within 0.08 m
+             (the same raster), the kernel within the gate's MSE of the
+             march on each map, and its composed-vs-standalone difference
+             printed (the two maps' contours are simplified apart);
+14. domain_randomization — the example's rollout through its own
+             functions: 4096 envs x 2 agents x 1080 beams on the world,
+             engine "pallas", auto-reset to the start grid, arc sort every
+             32 steps, gap-follow policy; 16 warm-up + 256 timed steps with
+             one scan-kernel launch a step and none of the overlay, dones,
+             scans in range, the distance from the start grid per track;
+             the kernel's time at this shape beside its bound; then its
+             --train learner: one warm-up and two timed PPO iterations with
+             32 launches each and finite metrics;
+15. trackgen — examples/waypoint_follow on the track of seed 9 written by
+             save_track (F110Env "auto", so the kernel): 500 pure-pursuit
+             steps without a collision; then on
+             examples/config_example_map.yaml (50 steps); then
+             examples/param_sweep at the yaml's budget (1000 envs, per-env
+             mass and lf, per-env gains) for one 512-step chunk.
 
 A kernel's time is the CUDA-event time a launch of a CUDA graph of
 launches (``kernel_ms``), printed beside the eager launches' time and the
@@ -105,6 +134,11 @@ ENV_STEPS = 200             # F110Env gap-follow steps
 PPO_MAP, PPO_ENVS, PPO_ITERS = "compact", 1024, 3  # examples/train_ppo.py
 PLAN_STEPS = 64             # batched pure-pursuit rollout steps
 CLOSED_LOOP_ATOL = 1e-6     # tests/test_planner.py::test_closed_loop_parity
+DR_TRACKS, DR_SEED, DR_ENVS = 16, 0, 4096  # examples/domain_randomization.py
+DR_PPO_ITERS = 2            # timed PPO iterations on the world
+SOLO_ATOL = 0.08            # tests/test_multi_track.py: composed vs standalone
+TRACK_STEPS, CONFIG_STEPS = 500, 50  # waypoint_follow steps
+SWEEP_STEPS = 512           # param_sweep: one chunk
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -227,6 +261,31 @@ def kernel_ms(fn, iters):
     torch.cuda.synchronize()
     return dict(ms=start.elapsed_time(end) / iters, eager_ms=eager_ms,
                 enqueue_us=enqueue_us)
+
+
+def k1_bound(w, pairs):
+    """K1's bound on the prepared sweep ``w``: HIT_OPS for each pair whose
+    beam lies in the row's arc (``pairs``, ``sk.pair_counts(w)``: the least
+    work the sweep needs on these inputs), against the bytes: the output,
+    each table row some scan sweeps once (a subgroup's block and the
+    extras, 32 B a row), the scalars, the fan and the selection (the
+    extras' start and count only where the pack has them). The bound over
+    all swept pairs is kept beside it."""
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+
+    table_rows = sk.rows_read(w)
+    selection = (w.bid, w.ng) + ((w.est, w.ecnt) if w.has_extras else ())
+    in_bytes = table_rows * 8 * 4 + sum(
+        t.numel() * t.element_size() for t in (w.scal, w.fan) + selection)
+    out_bytes = w.scal.shape[0] * w.num_beams * 4
+    t_ops = pairs["hit"] * HIT_OPS / H100_F32_FLOPS * 1e3
+    t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), ops_bound_ms=t_ops,
+                bytes_bound_ms=t_bytes,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bytes=in_bytes + out_bytes, table_rows_read=table_rows,
+                bound_ms_all_swept_pairs=max(
+                    pairs["swept"] * HIT_OPS / H100_F32_FLOPS * 1e3, t_bytes))
 
 
 def card():
@@ -608,12 +667,246 @@ def planner_phase(m, tables, poses, dev, card_name):
     return launches
 
 
+def start_world_build():
+    """Build the domain-randomization world's culling pack in a process of
+    its own, on the CPU, into the package's pack cache, while phases 1 and
+    2 run. Returns the process; its one output line is a JSON object."""
+    code = (
+        "import json, time\n"
+        "from f1tenth_gym_tpu_torch.tracks.multi import multi_track_map_data\n"
+        "t = time.time()\n"
+        f"m, _ = multi_track_map_data({DR_TRACKS}, seed={DR_SEED}, "
+        "device='cpu')\n"
+        "print(json.dumps(dict(seconds=time.time() - t, "
+        "raster=list(m.dt.shape), pack=list(m.tile_tables.shape))))\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, text=True)
+
+
+def world_poses(world, sort):
+    """The sampler's (DR_ENVS, AGENTS, 3) poses of ``world`` (generator
+    seed 7, as ``make_world`` draws them), in the order ``sort`` gives the
+    reset states: "arc" (the example's arc sort), "square"
+    (``sort_envs_for_locality``) or "none"."""
+    import f1tenth_gym_tpu_torch as P
+
+    s = world.states
+    if sort == "arc":
+        s = world.sort(s)
+    elif sort == "square":
+        s = P.sort_envs_for_locality(s)
+    return torch.stack([s.x[..., 0], s.x[..., 1], s.x[..., 4]], -1)
+
+
+def multi_track_phase(world, tables, kernel_vs_plain, leak_beams, build,
+                      card_name):
+    """The 16-track world and K1 on it (module docstring, phase 13)."""
+    import f1tenth_gym_tpu_torch as P
+    from f1tenth_gym_tpu_torch.ops import lidar as lidar_ops
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+    from f1tenth_gym_tpu_torch.tracks.trackgen import (
+        generate_centerline,
+        rasterize_track,
+    )
+
+    m, dev = world.map_data, world.map_data.device
+    flat = world_poses(world, "arc").reshape(-1, 3)
+    k_c, k_f, stats = kernel_vs_plain(m, flat, "multi_track")
+    leaks = leak_beams(m, flat, k_c, k_f, "multi_track")
+    require(leaks <= LEAK_CAP * k_c.numel(),
+            f"multi_track: {leaks} leak beams in {k_c.numel()}")
+    full_share = {}
+    for order in ("arc", "square", "none"):
+        w = sk.prepare_map(world_poses(world, order).reshape(-1, 3), m,
+                           tables, BEAMS, THETA_DIS)
+        full_share[order] = float((w.bid == 0).double().mean())
+    # composed vs standalone, from racing-line poses of two tracks: the
+    # march (the raster is the same, so the scans are: the JAX test's
+    # claim and bar), and K1 in the world (culled) and on the track's own
+    # map (full table), each held to its march by the gate's MSE bar. The
+    # two maps' wall contours are simplified from different starting
+    # points, so K1's scans differ by the simplification, most on beams
+    # that graze a wall: printed, not held to the march's bar
+    solo = {}
+    for k in (0, len(world.infos) - 1):
+        center = generate_centerline(np.random.default_rng(DR_SEED + k))
+        bitmap, res, origin = rasterize_track(center, 3.2)
+        m_solo = P.make_map_data(bitmap, res, origin, extract_segments=True,
+                                 device=dev)
+        info = world.infos[k]
+        n = len(center)
+        idx = [int(n * f) for f in (0.2, 0.55, 0.8)]
+        d = center[[(i + 1) % n for i in idx]] - center[idx]
+        th = np.arctan2(d[:, 1], d[:, 0])
+        poses = {
+            "solo": np.stack([center[idx, 0], center[idx, 1], th], -1),
+            "world": np.stack([info.waypoints[idx, 0],
+                               info.waypoints[idx, 1], th], -1)}
+        scans = {}
+        for name, mm in (("solo", m_solo), ("world", m)):
+            p = torch.as_tensor(poses[name], dtype=torch.float32, device=dev)
+            scans[name] = (sk.scan(p, mm, tables, BEAMS, THETA_DIS,
+                                   device=dev),
+                           lidar_ops.get_scan(p, mm, tables, BEAMS,
+                                              THETA_DIS))
+        march_d = float((scans["solo"][1] - scans["world"][1]).abs().max())
+        require(march_d < SOLO_ATOL, f"multi_track: track {k} composed vs "
+                f"standalone march max |d| {march_d} m")
+        k1_d = (scans["solo"][0] - scans["world"][0]).abs()
+        mse = {name: float(((kk - mm) ** 2).mean())
+               for name, (kk, mm) in scans.items()}
+        require(max(mse.values()) < 2.0,
+                f"multi_track: track {k} kernel vs march MSE {mse}")
+        solo[k] = dict(march_max_m=march_d, k1_max_m=float(k1_d.max()),
+                       k1_median_m=float(k1_d.median()),
+                       k1_beams_beyond_bar=int((k1_d >= SOLO_ATOL).sum()),
+                       beams=k1_d.numel(), k1_vs_march_mse=mse)
+    emit("multi_track", card=card_name, tracks=len(world.infos),
+         raster=list(m.dt.shape), seg_table_rows=m.seg_table.shape[0],
+         pack=list(m.tile_tables.shape),
+         pack_bytes=m.tile_tables.numel() * 4, tile_ext=m.tile_ext is not None,
+         eligible=list(m.cull_eligible.shape), build_seconds=build,
+         world_seconds=world.build_seconds, scans=flat.shape[0],
+         kernel_vs_plain=stats, culled_ne_full_beams=leaks,
+         full_table_share=full_share, composed_vs_standalone=solo,
+         composed_vs_standalone_bar_m=SOLO_ATOL)
+
+
+def domain_randomization_phase(world, tables, card_name):
+    """The example's rollout and PPO on the world (module docstring, phase
+    14). Returns K1's entry additions for the kernels line."""
+    from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
+    from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+
+    s, _, _ = dr.drive(world, world.states, WARMUP)
+    torch.cuda.synchronize()
+    sk.sweep.launches = 0
+    ok.overlay.launches = 0
+    t0 = time.time()
+    s, dones, _ = dr.drive(world, s, STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches, dones = sk.sweep.launches, int(dones)
+    require(launches == STEPS, f"domain_randomization: {launches} kernel "
+            f"launches in {STEPS} steps")
+    require(ok.overlay.launches == 0,
+            "domain_randomization: the step launched the overlay")
+    require(dones > 0, "domain_randomization: no env was done")
+    scans = scans_in_range(s, tables, "domain_randomization")
+    progress = dr.progress_per_track(s, world.infos)
+
+    # K1 at this shape: the last step's poses, mid sort period
+    x = s.x
+    w = sk.prepare_map(torch.stack([x[..., 0], x[..., 1], x[..., 4]],
+                                   -1).reshape(-1, 3), world.map_data,
+                       tables, BEAMS, THETA_DIS)
+    k = sk.sweep(w)
+    require(torch.equal(k, sk.sweep_plain(w)),
+            "domain_randomization shape: kernel != plain")
+    pairs = sk.pair_counts(w)
+    require(pairs["missed"] == 0, f"domain_randomization: {pairs}")
+    t_k = kernel_ms(lambda: sk.sweep(w), 50)
+    plain_ms = cuda_ms(lambda: sk.sweep_plain(w), 1)
+    bound = k1_bound(w, pairs)
+    emit("domain_randomization", card=card_name, envs=DR_ENVS, agents=AGENTS,
+         beams=BEAMS, tracks=len(world.infos), steps=STEPS, seconds=elapsed,
+         env_steps_per_s=DR_ENVS * STEPS / elapsed, dones=dones,
+         kernel_launches=launches, overlay_launches=ok.overlay.launches,
+         scans=scans, progress_per_track_m=progress, k1=t_k,
+         k1_plain_ms=plain_ms, **bound,
+         bound_share=bound["bound_ms"] / t_k["ms"],
+         full_table_share=float((w.bid == 0).double().mean()),
+         mean_swept_rows=float(w.swept_rows().double().mean()))
+
+    # --train: PPO across all tracks on the same world
+    ppo, ts = dr.make_learner(world)
+    T = ppo.pc.rollout_steps
+    ts, _ = ppo.train_step(ts)   # warm-up
+    torch.cuda.synchronize()
+    sk.sweep.launches = 0
+    iters = []
+    for _ in range(DR_PPO_ITERS):
+        t0 = time.perf_counter()
+        ts, metrics = ppo.train_step(ts)
+        met = {key: float(v) for key, v in metrics.items()}
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        require(all(np.isfinite(v) for v in met.values()),
+                f"domain_randomization ppo: non-finite metrics {met}")
+        iters.append(dict(seconds=host_s, env_steps_per_s=DR_ENVS * T / host_s,
+                          **met))
+    ppo_launches = sk.sweep.launches
+    require(ppo_launches == T * DR_PPO_ITERS,
+            f"domain_randomization ppo: {ppo_launches} kernel launches in "
+            f"{DR_PPO_ITERS} iterations of {T} steps")
+    emit("domain_randomization_ppo", card=card_name, envs=DR_ENVS,
+         agents=AGENTS, rollout_steps=T, iterations=iters,
+         kernel_launches=ppo_launches,
+         scans=scans_in_range(ts.env_states, tables, "dr ppo"))
+    return dict(multi_track_launches=launches, multi_track_ms=t_k["ms"],
+                multi_track_plain_ms=plain_ms,
+                multi_track_bound_ms=bound["bound_ms"],
+                multi_track_bound_by=bound["bound_by"],
+                multi_track_ppo_launches=ppo_launches)
+
+
+def trackgen_phase(dev, card_name):
+    """A generated track, the experiment yaml and the parameter sweep on
+    the card (module docstring, phase 15). Returns K1's launches."""
+    from f1tenth_gym_tpu_torch.examples import param_sweep, waypoint_follow
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, argv, steps in (
+                ("generated", ["--seed", "9", "--track-dir", tmp,
+                               "--steps", str(TRACK_STEPS)], TRACK_STEPS),
+                ("config", ["--config", os.path.join(
+                    ROOT, "examples", "config_example_map.yaml"),
+                    "--steps", str(CONFIG_STEPS)], CONFIG_STEPS)):
+            sk.sweep.launches = 0
+            r = waypoint_follow.main(argv + ["--device", str(dev)])
+            torch.cuda.synchronize()
+            require(r["steps"] == steps and r["collisions"] == [0.0],
+                    f"trackgen {label}: {r}")
+            require(sk.sweep.launches == steps + 1,   # the reset's too
+                    f"trackgen {label}: {sk.sweep.launches} kernel launches")
+            out[label] = dict(r, steps_per_s=steps / r["seconds"],
+                              kernel_launches=sk.sweep.launches)
+    sk.sweep.launches = 0
+    r = param_sweep.main(["--steps", str(SWEEP_STEPS), "--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = sk.sweep.launches
+    require(launches == SWEEP_STEPS and r["poses_finite"],
+            f"param_sweep: {launches} kernel launches, finite "
+            f"{r['poses_finite']}")
+    r.pop("states")
+    emit("trackgen", card=card_name, **out,
+         param_sweep=dict(r, kernel_launches=launches))
+    return dict(trackgen_launches=sum(v["kernel_launches"]
+                                      for v in out.values()),
+                param_sweep_launches=launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    world_build = start_world_build()
+    try:
+        return run(world_build)
+    finally:
+        if world_build.poll() is None:
+            world_build.kill()
+        world_build.stdout.close()
+        world_build.wait()
 
+
+def run(world_build):
+    """Phases 1-15; ``world_build`` is ``start_world_build``'s process."""
     import f1tenth_gym_tpu_torch as P
+    from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
     from f1tenth_gym_tpu_torch.maps import map_path
     from f1tenth_gym_tpu_torch.ops import collision as col_ops
     from f1tenth_gym_tpu_torch.ops import lidar as lidar_ops
@@ -906,39 +1199,19 @@ def main():
     # the same kernel with its row skip off: every pair tested
     t_noskip = kernel_ms(lambda: sk._sweep_cuda(w_c, skip=False), 20)
     ms_plain = cuda_ms(lambda: sk.sweep_plain(w_c), 3)
-    # bound: HIT_OPS for each pair whose beam lies in the row's arc (the
-    # least work the sweep needs on these inputs), against the bytes: the
-    # output, each table row some scan sweeps once (a subgroup's block and
-    # the extras, 32 B a row), the scalars, the fan and the selection (the
-    # extras' start and count only where the pack has them); the count
-    # over all swept pairs is kept beside it
     pairs = {"culled": sk.pair_counts(w_c), "full": sk.pair_counts(w_f)}
     require(pairs["culled"]["missed"] == 0 and pairs["full"]["missed"] == 0,
             f"main path: the row skip drops hit pairs: {pairs}")
-    n_pad = w_c.scal.shape[0]
-    table_rows = sk.rows_read(w_c)
-    selection = (w_c.bid, w_c.ng) + ((w_c.est, w_c.ecnt) if w_c.has_extras
-                                     else ())
-    in_bytes = table_rows * 8 * 4 + sum(
-        t.numel() * t.element_size()
-        for t in (w_c.scal, w_c.fan) + selection)
-    out_bytes = n_pad * BEAMS * 4
-    t_ops = pairs["culled"]["hit"] * HIT_OPS / H100_F32_FLOPS * 1e3
-    t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    bound = k1_bound(w_c, pairs["culled"])
+    t_ops, t_bytes = bound["ops_bound_ms"], bound["bytes_bound_ms"]
     rows = w_c.swept_rows().double()
     emit("kernel_timing", card=card_name, culled=t_culled, full=t_full,
          culled_no_skip=t_noskip, plain_ms=ms_plain,
-         bound_ms=max(t_ops, t_bytes), ops_bound_ms=t_ops,
-         bytes_bound_ms=t_bytes, bytes=in_bytes + out_bytes,
-         table_rows_read=table_rows,
-         bound_ms_all_swept_pairs=max(
-             pairs["culled"]["swept"] * HIT_OPS / H100_F32_FLOPS * 1e3,
-             t_bytes),
-         bound_share=max(t_ops, t_bytes) / t_culled["ms"],
+         **bound, bound_share=bound["bound_ms"] / t_culled["ms"],
          pairs=pairs,
          kept_share=pairs["culled"]["kept"] / pairs["culled"]["swept"],
          hit_share=pairs["culled"]["hit"] / pairs["culled"]["swept"],
-         occupancy=sk.occupancy(n_pad, BEAMS),
+         occupancy=sk.occupancy(w_c.scal.shape[0], BEAMS),
          mean_swept_rows=float(rows.mean()),
          mean_swept_groups=float(rows.mean()) / sk.GROUP,
          culled_subgroups=int((w_c.bid > 0).sum()),
@@ -951,6 +1224,18 @@ def main():
     ppo_launches = ppo_phase(dev, card_name)
     planner_launches = planner_phase(m_ex, tables, poses_ex, dev, card_name)
 
+    # ---- 13. the 16-track world; 14. domain randomization; 15. trackgen
+    out, _ = world_build.communicate()
+    require(world_build.returncode == 0,
+            f"the world's pack build failed ({world_build.returncode})")
+    build = json.loads(out.strip().splitlines()[-1])
+    world = dr.make_world(DR_TRACKS, DR_ENVS, AGENTS, BEAMS, DR_SEED, dev)
+    multi_track_phase(world, tables, kernel_vs_plain, leak_beams, build,
+                      card_name)
+    k1_extra = domain_randomization_phase(world, tables, card_name)
+    del world
+    k1_extra.update(trackgen_phase(dev, card_name))
+
     print(json.dumps({"kernels": [{
         "name": "scan_kernel",
         "route": "cuda",
@@ -959,6 +1244,7 @@ def main():
         "launches": launches,
         "ppo_launches": ppo_launches,
         "planner_launches": planner_launches,
+        **k1_extra,
         "max_abs_err": max_err,
         "ms": t_culled["ms"],
         "ms_full": t_full["ms"],

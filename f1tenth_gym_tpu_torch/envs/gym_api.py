@@ -4,7 +4,8 @@ Port of ``f1tenth_gym_tpu/envs/gym_api.py``. ``F110Env`` mirrors the
 reference's Gym env surface (f110_env.py:53-418): the same constructor
 kwargs, the same ``reset(poses) -> (obs, reward, done, info)`` 4-tuple,
 the same observation keys (docs/api/obv.rst), ``update_map``,
-``update_params`` and ``add_render_callback``. It is a thin host shell
+``update_params``, ``add_render_callback`` and ``render`` (pygame,
+``render/renderer.py``). It is a thin host shell
 around ``core/env.py`` stepping one env (E = 1) on the card, or on the CPU
 with ``device="cpu"``; the scan noise comes from a ``torch.Generator``
 seeded from ``seed`` at every reset.
@@ -18,6 +19,7 @@ package's ``f1tenth_tpu/f110-v0`` when both are imported.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -121,6 +123,7 @@ class F110Env:
         self.state = None
         self.render_obs = None
         self.render_callbacks = []
+        self.renderer = None
         self.current_time = 0.0
         self._generator = None
         self._timestep = None
@@ -176,6 +179,8 @@ class F110Env:
         self.map_name = map_path
         self.map_ext = map_ext
         self.map_data = self._load_map(map_path, map_ext)
+        if self.renderer is not None:
+            self.renderer.update_map(map_path, map_ext)
 
     def update_params(self, params: Dict[str, Any], index: int = -1):
         """Update vehicle params (f110_env.py:364-375): every agent's, or
@@ -191,13 +196,32 @@ class F110Env:
             "lap_counts")}
 
     def render(self, mode: str = "human"):
-        raise NotImplementedError(
-            "the PyTorch port has no renderer yet (ROADMAP P18, "
-            "render/renderer.py); render with the JAX package's EnvRenderer "
-            f"from env.render_obs meanwhile (mode {mode!r})")
+        """Draw the last observation on the host (f110_env.py:387-418):
+        a window for "human" and "human_fast", an (H, W, 3) uint8 frame
+        for "rgb_array". The renderer (pygame) is built at the first call."""
+        if mode not in ("human", "human_fast", "rgb_array"):
+            raise ValueError(f"unknown render mode {mode!r}")
+        if self.renderer is None:
+            from f1tenth_gym_tpu_torch.render.renderer import EnvRenderer
+
+            self.renderer = EnvRenderer(
+                headless=(mode == "rgb_array"),
+                car_length=float(self.params.length.max()),
+                car_width=float(self.params.width.max()),
+            )
+            self.renderer.update_map(self.map_name, self.map_ext)
+        self.renderer.update_obs(self.render_obs)
+        for cb in self.render_callbacks:
+            cb(self.renderer)
+        frame = self.renderer.draw(return_array=(mode == "rgb_array"))
+        if mode == "human":
+            time.sleep(0.005)
+        return frame
 
     def close(self):
-        pass
+        if self.renderer is not None:
+            self.renderer.close()
+            self.renderer = None
 
 
 try:  # gymnasium.make requires inheriting gymnasium.Env

@@ -60,8 +60,8 @@ def first_point_on_trajectory_intersecting_circle(point, radius, trajectory,
     be >= frac(t0). ``start_i`` truncates t0 to int32 and frac(t0) is a
     floor modulo, as in the JAX package.
 
-    point (..., 2), t0 (...) -> (point (..., 2), seg_idx (...), t (...),
-    found (...)).
+    point (..., 2), radius a number or (...), t0 (...) -> (point (..., 2),
+    seg_idx (...), t (...), found (...)).
     """
     N = trajectory.shape[0]
     t0 = torch.as_tensor(t0, dtype=point.dtype, device=point.device)
@@ -78,8 +78,11 @@ def first_point_on_trajectory_intersecting_circle(point, radius, trajectory,
     p = point[..., None, :]
     a = dot(V, V)
     b = 2.0 * dot(V, starts - p)
+    r2 = radius * radius
+    if isinstance(r2, torch.Tensor) and r2.dim():   # a radius a car
+        r2 = r2[..., None]
     c = (dot(starts, starts) + dot(point, point)[..., None]
-         - 2.0 * dot(starts, p) - radius * radius)
+         - 2.0 * dot(starts, p) - r2)
     disc = b * b - 4 * a * c
     has_root = disc >= 0.0
     sq = torch.sqrt(torch.where(has_root, disc, torch.zeros_like(disc)))

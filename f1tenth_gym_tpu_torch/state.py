@@ -33,8 +33,11 @@ STATE_DIM = 7
 class VehicleParams:
     """The 18 vehicle parameters of the reference (f110_env.py:130).
 
-    Each leaf is a 0-d tensor or an (A,) tensor of per-agent values; both
-    broadcast against (E, A) state tensors.
+    Each leaf is a 0-d tensor, an (A,) tensor of per-agent values or an
+    (E, 1) tensor of per-env values (what ``vmap`` over params gives in the
+    JAX package; ``examples/param_sweep.py`` steps so); all broadcast
+    against (E, A) state tensors through the dynamics, the collision boxes
+    and the step. The scan tables take width, lf and lr once, as scalars.
     """
 
     mu: torch.Tensor

@@ -154,9 +154,16 @@ def test_engines_step(ring_path, engine):
 
 
 def test_render_points_at_the_roadmap(ring_path):
+    """render() draws the last observation (P18's renderer): a headless
+    frame for "rgb_array"; an unknown mode raises."""
     env = _env(ring_path)
-    with pytest.raises(NotImplementedError, match="P18"):
-        env.render()
+    env.reset(ring_start_poses(2, RADIUS))
+    with pytest.raises(ValueError, match="render mode"):
+        env.render("bogus")
+    frame = env.render("rgb_array")
+    assert frame.shape == (800, 1000, 3) and frame.dtype == np.uint8
+    env.close()
+    assert env.renderer is None
     assert not _env(ring_path)._wants_segments()  # "auto" on the CPU: march
 
 
