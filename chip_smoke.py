@@ -95,19 +95,47 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              steps without a collision; then on
              examples/config_example_map.yaml (50 steps); then
              examples/param_sweep at the yaml's budget (1000 envs, per-env
-             mass and lf, per-env gains) for one 512-step chunk.
+             mass and lf, per-env gains) for one 512-step chunk;
+16. sharded — the sharded path (parallel/sharding.py, multihost.py,
+             PPO(mesh=...), save_orbax/load_orbax). At world size 1 on the
+             card: multihost.initialize() (no cluster variables: stays
+             local), global_mesh(), host_local_states and shard_states;
+             SHARD_STEPS steps of the main path's auto-reset step (scan
+             noise off, no locality sort) bit for bit equal to the same
+             steps unsharded, one K1 launch a step; PPO(mesh=make_mesh())
+             at the ppo phase's configuration bit for bit equal to PPO()
+             after one iteration and after SHARD_PPO_TURNS timed ones taken
+             in turns (plain, mesh, mesh, plain). Then RANKS ranks on the
+             one card over gloo (NCCL refuses two ranks on one device),
+             spawned here: the main path's envs split between them,
+             RANK_STEPS steps without scan noise, the stitched scans and
+             states bit for bit the one-process run's; save_orbax of the
+             ranks' states at world size RANKS, load_orbax at world size 1,
+             bit for bit; one sharded PPO iteration of train_ppo's learner
+             without scan noise, parameters within RANK_PPO_ATOL of one
+             process's (the reduction order differs); each rank's K1
+             launches;
+17. bench  — ``python -m f1tenth_gym_tpu_torch.bench`` at its defaults
+             (the main path's workload and gates on the card, then the
+             weak-scaling stand-in over 1, 2, 4 and 8 gloo processes on
+             the machine's CPU, whose rates say nothing about the card):
+             the keys of its line, its gates under 2.0, one K1 launch a
+             timed step.
 
 A kernel's time is the CUDA-event time a launch of a CUDA graph of
 launches (``kernel_ms``), printed beside the eager launches' time and the
 host's enqueue time a call, which is of the same order as the kernels.
-Then the ``kernels`` line, the card's name and power limit, and the result
-line. Exits non-zero without a result when no CUDA device is present.
+Then the ``kernels`` line (K1's entry carries its launches on each path:
+``launches`` on the main path, and those of the later phases, among them
+``sharded_launches``, ``sharded_rank_launches`` and ``bench_launches``),
+the card's name and power limit, and the result line. Exits non-zero without a result when no CUDA device is present.
 """
 
 import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -115,6 +143,16 @@ import time
 
 import numpy as np
 import torch
+
+from f1tenth_gym_tpu_torch.bench import bench_poses as _bench_poses
+from f1tenth_gym_tpu_torch.bench import (
+    gap_follow,
+    gate_mse,
+    gate_poses,
+    inside_raster,
+    ittc_collision_gate,
+    main_path,
+)
 
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3
@@ -139,6 +177,14 @@ DR_PPO_ITERS = 2            # timed PPO iterations on the world
 SOLO_ATOL = 0.08            # tests/test_multi_track.py: composed vs standalone
 TRACK_STEPS, CONFIG_STEPS = 500, 50  # waypoint_follow steps
 SWEEP_STEPS = 512           # param_sweep: one chunk
+SHARD_STEPS = 64            # sharded racing steps at world size 1
+SHARD_PPO_TURNS = 4         # timed PPO iterations, plain and mesh in turn
+RANKS, RANK_STEPS = 2, 16   # ranks on the one card (gloo), their steps
+RANK_PPO_ATOL = 1e-5        # 2-rank PPO parameters vs one process (f32)
+RANK_TIMEOUT_S = 300.0
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "scan_mse_by_map",
+              "ittc_collision_gate", "weak_scaling_retention_8shard",
+              "weak_scaling_total_rates")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -151,67 +197,10 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def grid_of(m):
-    """The map's culling tile grid, as tile_snake_key takes it."""
-    tm = m.tile_meta_host
-    return dict(tile_size=1.0 / tm[2], origin=(tm[0], tm[1]))
-
-
 def bench_poses(m, seed, **kw):
-    """(ENVS, AGENTS, 3) start poses of the bench sampler (bench.py:201-208)
-    on the map's device, in tile-snake order."""
-    import f1tenth_gym_tpu_torch as P
-    from f1tenth_gym_tpu_torch.parallel.vector import tile_snake_key
-
-    sampler = P.uniform_pose_sampler(m, clearance=0.6, grouped=True,
-                                     align_theta=True, **kw)
-    poses = sampler(P.make_generator(m.device, seed), (ENVS, AGENTS))
-    key = tile_snake_key(poses[..., 0].mean(1), poses[..., 1].mean(1),
-                         **grid_of(m))
-    return poses[torch.argsort(key, stable=True)]
-
-
-def gap_follow(scans):
-    """The gap-follow policy of bench.py:297-310: (..., B) -> (..., 2)."""
-    B = scans.shape[-1]
-    lo, hi = 2 * B // 5, 3 * B // 5
-    best = torch.argmax(scans[..., lo:hi], -1) + lo
-    angle = (best.to(scans.dtype) / (B - 1) - 0.5) * 4.7
-    steer = torch.clamp(0.6 * angle, -0.4, 0.4)
-    front = scans[..., lo:hi].amin(-1)
-    speed = torch.clamp(0.8 * front, 1.0, 4.0)
-    return torch.stack([steer, speed], -1)
-
-
-def main_path(m, tables, poses):
-    """The bench racing step on ``m`` from ``poses``: returns the reset
-    states and ``drive(states, n_steps) -> (states, dones)``, which steps
-    with the gap-follow policy and re-sorts for locality every
-    SORT_PERIOD steps."""
-    import f1tenth_gym_tpu_torch as P
-
-    dev = m.device
-    cfg = P.SimConfig(num_agents=AGENTS, num_beams=BEAMS, dtype="float32",
-                      scan_engine="kernel")
-    params = P.VehicleParams.create(device=dev)
-    gen = P.make_generator(dev, 0)
-    states, *_ = P.batch_reset(poses, params, m, tables, cfg, 0.01,
-                               generator=gen, device=dev)
-    astep = P.make_autoreset_step(params, m, tables, cfg, 0.01,
-                                  reset_to_start=True, generator=gen,
-                                  device=dev)
-    sort_kw = grid_of(m)
-
-    def drive(s, n_steps):
-        dones = torch.zeros((), dtype=torch.int64, device=dev)
-        for i in range(n_steps):
-            if i % SORT_PERIOD == 0:
-                s = P.sort_envs_for_locality(s, **sort_kw)
-            s, _, _, done, _ = astep(s, gap_follow(s.scans))
-            dones += done.sum()
-        return s, dones
-
-    return states, drive
+    """(ENVS, AGENTS, 3) start poses of the bench sampler on the map's
+    device, in tile-snake order (``bench.bench_poses``)."""
+    return _bench_poses(m, seed, ENVS, AGENTS, **kw)
 
 
 def cuda_ms(fn, iters):
@@ -889,6 +878,228 @@ def trackgen_phase(dev, card_name):
                 param_sweep_launches=launches)
 
 
+def equal_states(a, b):
+    """The names of the SimState fields on which ``a`` and ``b`` differ."""
+    from f1tenth_gym_tpu_torch.state import SimState
+
+    return [f.name for f in dataclasses.fields(SimState)
+            if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+
+
+def max_param_diff(a, b):
+    """The largest |difference| between two flax parameter dicts."""
+    if isinstance(a, dict):
+        return max(max_param_diff(a[k], b[k]) for k in a)
+    return float(np.abs(np.asarray(a, np.float64) - b).max())
+
+
+def sharded_rank(rank, nprocs, port, device_type, ckpt):
+    """One of RANKS ranks on the one card over gloo (module docstring,
+    phase 16): its rows of the main path's envs after RANK_STEPS steps,
+    written to ``ckpt`` with save_orbax too; one sharded PPO iteration of
+    train_ppo's learner without scan noise; its K1 launches."""
+    import f1tenth_gym_tpu_torch as P
+    from f1tenth_gym_tpu_torch.maps import map_path
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+    from f1tenth_gym_tpu_torch.parallel import multihost
+    from f1tenth_gym_tpu_torch.parallel.sharding import env_shard, local_device
+    from f1tenth_gym_tpu_torch.state import SimState
+    from f1tenth_gym_tpu_torch.train_ppo import make_learner
+    from f1tenth_gym_tpu_torch.utils.checkpoint import save_orbax
+    from f1tenth_gym_tpu_torch.utils.convert import actor_critic_to_numpy
+
+    t0 = time.time()
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=nprocs, process_id=rank,
+                         backend="gloo", devices=device_type)
+    mesh = multihost.global_mesh(devices=device_type)
+    dev = local_device(mesh)
+    m = P.load_map(map_path("example_map"), extract_segments=True,
+                   tile_culling=True, culling_tile_size=1.25, device=dev)
+    tables = P.make_scan_tables(num_beams=BEAMS, device=dev)
+    per_rank = ENVS // nprocs
+    idx, _ = env_shard(mesh)
+    rows = slice(idx * per_rank, (idx + 1) * per_rank)
+    poses = bench_poses(m, 7, component_seed=(0.7, 0.0))[rows]
+    built, drive = main_path(m, tables, poses, sort_period=0,
+                             scan_noise=False)
+    states = multihost.host_local_states(lambda n: built, mesh, per_rank)
+    sk.sweep.launches = 0
+    s, _ = drive(states, RANK_STEPS)
+    torch.cuda.synchronize()
+    launches = sk.sweep.launches
+    save_orbax(ckpt, s, mesh)
+
+    ppo, ts = make_learner(PPO_MAP, PPO_ENVS, BEAMS, "pallas", mesh=mesh,
+                           scan_noise=False)
+    sk.sweep.launches = 0
+    ts, metrics = ppo.train_step(ts)
+    torch.cuda.synchronize()
+    ppo_launches = sk.sweep.launches
+    params = actor_critic_to_numpy(ts.net)  # whole: every rank calls it
+    return dict(device=str(dev), rows=[rows.start, rows.stop],
+                states={f.name: getattr(s, f.name).cpu().numpy()
+                        for f in dataclasses.fields(SimState)},
+                launches=launches, ppo_launches=ppo_launches,
+                ppo_envs=ts.env_states.num_envs, net=params,
+                metrics={k: float(v) for k, v in metrics.items()},
+                seconds=time.time() - t0)
+
+
+def sharded_phase(m, tables, poses, dev, card_name):
+    """The sharded path on the card (module docstring, phase 16). Returns
+    K1's launches on it: at world size 1 (the steps and the mesh
+    learner's timed iterations) and on each of the RANKS ranks."""
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+    from f1tenth_gym_tpu_torch.parallel import multihost
+    from f1tenth_gym_tpu_torch.parallel.sharding import make_mesh, shard_states
+    from f1tenth_gym_tpu_torch.state import SimState
+    from f1tenth_gym_tpu_torch.train_ppo import make_learner
+    from f1tenth_gym_tpu_torch.utils.checkpoint import load_orbax
+    from f1tenth_gym_tpu_torch.utils.convert import actor_critic_to_numpy
+
+    t_phase = time.time()
+    # world size 1: no cluster variables, so initialize() stays local
+    multihost.initialize()
+    require(not multihost.is_initialized(), "initialize() left the process "
+            "in a group without cluster variables")
+    mesh = multihost.global_mesh(devices=dev)
+    require(mesh.size() == 1, f"world-size-1 mesh of {mesh.size()} ranks")
+    states, drive = main_path(m, tables, poses, sort_period=0,
+                              scan_noise=False)
+    local = shard_states(multihost.host_local_states(
+        lambda n: states, mesh, ENVS), mesh)
+    torch.cuda.synchronize()
+    sk.sweep.launches = 0
+    s_sh, _ = drive(local, SHARD_STEPS)
+    torch.cuda.synchronize()
+    step_launches = sk.sweep.launches
+    require(step_launches == SHARD_STEPS, f"sharded: {step_launches} K1 "
+            f"launches in {SHARD_STEPS} steps")
+    s_ref, _ = drive(states, SHARD_STEPS)
+    bad = equal_states(s_sh, s_ref)
+    require(not bad, f"sharded world-1 steps differ from unsharded in {bad}")
+
+    # PPO(mesh=make_mesh()) against PPO() from the same seeds, timed in
+    # turns: plain, mesh, mesh, plain
+    ppo_p, ts_p = make_learner(PPO_MAP, PPO_ENVS, BEAMS, "pallas", dev)
+    ppo_m, ts_m = make_learner(PPO_MAP, PPO_ENVS, BEAMS, "pallas",
+                               mesh=make_mesh(devices=dev))
+    ts_p, _ = ppo_p.train_step(ts_p)
+    ts_m, _ = ppo_m.train_step(ts_m)
+
+    def same(label):
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(
+            ts_p.net.parameters(), ts_m.net.parameters())),
+            f"sharded ppo: mesh parameters differ ({label})")
+        bad = equal_states(ts_p.env_states, ts_m.env_states)
+        require(not bad, f"sharded ppo: mesh env states differ in {bad} "
+                f"({label})")
+
+    same("first iteration")
+    times = {"plain": [], "mesh": []}
+    mesh_launches = 0
+    for turn in range(SHARD_PPO_TURNS):
+        kind = ("plain", "mesh", "mesh", "plain")[turn % 4]
+        torch.cuda.synchronize()
+        sk.sweep.launches = 0
+        t0 = time.perf_counter()
+        if kind == "plain":
+            ts_p, _ = ppo_p.train_step(ts_p)
+        else:
+            ts_m, _ = ppo_m.train_step(ts_m)
+        torch.cuda.synchronize()
+        times[kind].append(time.perf_counter() - t0)
+        if kind == "mesh":
+            mesh_launches += sk.sweep.launches
+    same("after the timed turns")
+    T = ppo_m.pc.rollout_steps
+    require(mesh_launches == T * len(times["mesh"]),
+            f"sharded ppo: {mesh_launches} K1 launches")
+    emit("sharded_world1", card=card_name, envs=ENVS, agents=AGENTS,
+         beams=BEAMS, steps=SHARD_STEPS, kernel_launches=step_launches,
+         steps_bit_identical=True, ppo_envs=PPO_ENVS, ppo_bit_identical=True,
+         ppo_seconds=times, ppo_kernel_launches=mesh_launches,
+         ppo_env_steps_per_s={k: [PPO_ENVS * T / t for t in v]
+                              for k, v in times.items()})
+
+    # RANKS ranks on the one card over gloo, against one process
+    ref0, drive = main_path(m, tables, poses, sort_period=0,
+                            scan_noise=False)
+    ref, _ = drive(ref0, RANK_STEPS)
+    ppo_r, ts_r = make_learner(PPO_MAP, PPO_ENVS, BEAMS, "pallas", dev,
+                               scan_noise=False)
+    ts_r, _ = ppo_r.train_step(ts_r)
+    want = actor_critic_to_numpy(ts_r.net)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "states")
+        t0 = time.time()
+        outs = multihost.spawn(sharded_rank, RANKS, (dev.type, ckpt),
+                               timeout_s=RANK_TIMEOUT_S)
+        spawn_s = time.time() - t0
+        loaded = load_orbax(ckpt, ref.map(torch.empty_like))
+    stitched = SimState(**{f.name: torch.from_numpy(np.concatenate(
+        [o["states"][f.name] for o in outs])).to(dev)
+        for f in dataclasses.fields(SimState)})
+    bad = equal_states(stitched, ref)
+    require(not bad, f"{RANKS} ranks: stitched states differ in {bad}")
+    bad = equal_states(loaded, ref)
+    require(not bad, f"save_orbax at world {RANKS}, load_orbax at world 1: "
+            f"differs in {bad}")
+    diffs = [max_param_diff(o["net"], want) for o in outs]
+    require(max(diffs) <= RANK_PPO_ATOL, f"{RANKS}-rank PPO parameters "
+            f"{diffs} from one process's")
+    rank_launches = [o["launches"] for o in outs]
+    rank_ppo = [o["ppo_launches"] for o in outs]
+    require(rank_launches == [RANK_STEPS] * RANKS
+            and rank_ppo == [T] * RANKS,
+            f"rank K1 launches {rank_launches}, PPO {rank_ppo}")
+    emit("sharded_ranks", card=card_name, ranks=RANKS, backend="gloo",
+         devices=[o["device"] for o in outs], rows=[o["rows"] for o in outs],
+         steps=RANK_STEPS, states_bit_identical=True,
+         checkpoint_world2_to_world1_bit_identical=True,
+         ppo_envs=PPO_ENVS, ppo_max_param_diff=diffs,
+         ppo_max_param_diff_bar=RANK_PPO_ATOL,
+         ppo_metrics=[o["metrics"] for o in outs],
+         rank_kernel_launches=rank_launches,
+         rank_ppo_kernel_launches=rank_ppo,
+         rank_seconds=[o["seconds"] for o in outs], spawn_seconds=spawn_s,
+         phase_seconds=time.time() - t_phase)
+    return dict(sharded_launches=step_launches + mesh_launches,
+                sharded_rank_launches=[a + b for a, b in
+                                       zip(rank_launches, rank_ppo)])
+
+
+def bench_phase(card_name):
+    """``python -m f1tenth_gym_tpu_torch.bench`` at its defaults on the
+    card (module docstring, phase 17). Returns K1's launches in its timed
+    steps."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "f1tenth_gym_tpu_torch.bench"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.time() - t0
+    require(proc.returncode == 0, f"bench exited {proc.returncode}:\n"
+            f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    require(not missing, f"bench line lacks {missing}")
+    require(all(v < 2.0 for v in line["scan_mse_by_map"].values())
+            and line["ittc_collision_gate"] == "ok",
+            f"bench gates: {line['scan_mse_by_map']}")
+    note = [ln for ln in proc.stderr.splitlines() if ln.startswith("# envs=")]
+    require(len(note) == 1, f"bench wrote no '# envs=' line:\n{proc.stderr}")
+    launches = int(re.search(r"k1_launches=(\d+)", note[0]).group(1))
+    steps = int(re.search(r"steps=(\d+)", note[0]).group(1))
+    require(launches == steps, f"bench: {launches} K1 launches in {steps} "
+            "steps")
+    emit("bench", card=card_name, line=line, note=note[0],
+         weak_scaling_on="the card machine's CPU (gloo ranks), not the card",
+         kernel_launches=launches, seconds=seconds)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -904,11 +1115,10 @@ def main():
 
 
 def run(world_build):
-    """Phases 1-15; ``world_build`` is ``start_world_build``'s process."""
+    """Phases 1-17; ``world_build`` is ``start_world_build``'s process."""
     import f1tenth_gym_tpu_torch as P
     from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
     from f1tenth_gym_tpu_torch.maps import map_path
-    from f1tenth_gym_tpu_torch.ops import collision as col_ops
     from f1tenth_gym_tpu_torch.ops import lidar as lidar_ops
     from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
@@ -1044,9 +1254,7 @@ def run(world_build):
     checks = {"example_map": poses_ex[:32].reshape(-1, 3)}
     st_maps = {}
     for name in ("berlin", "stata_basement"):
-        host_map = P.load_map(map_path(name), device="cpu")
-        checks[name] = P.uniform_pose_sampler(host_map, clearance=0.5)(
-            P.make_generator("cpu", 11), (32,)).to(dev)
+        checks[name] = gate_poses(name, dev)
         _, _, st_maps[f"{name}_gate"] = kernel_vs_plain(
             maps[name], checks[name], f"{name} gate poses")
         _, _, st_maps[f"{name}_bench"] = kernel_vs_plain(
@@ -1060,50 +1268,13 @@ def run(world_build):
     overlay_entry = overlay_phase(bench_scans, poses_ex, tables, params,
                                   card_name)
 
-    # ---- 5. gates of bench.py:230-289
-    def inside_raster(m, cp, ranges):
-        """(n, B) bool: the marched beam ends inside the map raster. A
-        march that leaves the raster stops on the reference's wrapped
-        out-of-bounds cell (ops/lidar.py dt_lookup), which is no wall to
-        the segment sweep: those beams measure the map's open edges, not
-        the kernel (tests/test_torch_gate.py shows the JAX package's
-        engines part the same way on the same poses)."""
-        idx = lidar_ops.beam_theta_indices(cp[:, 2], tables, BEAMS, THETA_DIS)
-        xt = cp[:, 0:1] + ranges * tables.cosines[idx] - m.orig_x
-        yt = cp[:, 1:2] + ranges * tables.sines[idx] - m.orig_y
-        xr = xt * m.orig_c + yt * m.orig_s
-        yr = -xt * m.orig_s + yt * m.orig_c
-        return ((xr >= 0) & (xr < m.width * m.resolution)
-                & (yr >= 0) & (yr < m.height * m.resolution))
-
-    mse, mse_all, left, pose_sum, marches = {}, {}, {}, {}, {}
+    # ---- 5. gates of bench.py:230-289 (f1tenth_gym_tpu_torch/bench.py's)
+    mse, mse_all, left, pose_sum = {}, {}, {}, {}
     for name, cp in checks.items():
-        march = lidar_ops.get_scan(cp, maps[name], tables, BEAMS, THETA_DIS)
-        marches[name] = march
-        kern = sk.scan(cp, maps[name], tables, BEAMS, THETA_DIS, device=dev)
-        inside = inside_raster(maps[name], cp, march)
-        d2 = (march - kern) ** 2
-        mse[name] = float(d2[inside].mean())
-        mse_all[name] = float(d2.mean())
-        left[name] = int((~inside).sum())
+        mse[name], mse_all[name], left[name] = gate_mse(maps[name], cp, tables)
         pose_sum[name] = float(cp.double().sum())
         require(mse[name] < 2.0, f"kernel vs march MSE {mse[name]} on {name}")
-    vel = torch.full((2,), 8.0, device=dev)
-    hot = lidar_ops.check_ttc(torch.full((2, BEAMS), 0.18, device=dev), vel,
-                              tables)
-    cold = lidar_ops.check_ttc(torch.full((2, BEAMS), 25.0, device=dev), vel,
-                               tables)
-    require(bool(hot.all()) and not bool(cold.any()), "iTTC gate")
-    overlap = col_ops.get_vertices(torch.tensor(
-        [[0.0, 0.0, 0.0], [0.1, 0.0, 0.5]], device=dev), params.length,
-        params.width)
-    apart = col_ops.get_vertices(torch.tensor(
-        [[0.0, 0.0, 0.0], [5.0, 0.0, 0.5]], device=dev), params.length,
-        params.width)
-    c_hot, _ = col_ops.collision_multiple(overlap)
-    c_cold, _ = col_ops.collision_multiple(apart)
-    require(bool((c_hot > 0).all()) and not bool((c_cold > 0).any()),
-            "collision gate")
+    ittc_collision_gate(tables, params)
     emit("gates", scan_mse_by_map=mse, scan_mse_all_beams=mse_all,
          beams_leaving_raster=left, beams_per_map=32 * BEAMS,
          gate_pose_sum=pose_sum, ittc_collision_gate="ok")
@@ -1111,10 +1282,11 @@ def run(world_build):
     # ---- 6. segments engine: the gate's bar, and a batch step with it
     seg_mse = {}
     for name in ("example_map", "berlin"):
-        cp, march = checks[name], marches[name]
+        cp = checks[name]
+        march = lidar_ops.get_scan(cp, maps[name], tables, BEAMS, THETA_DIS)
         seg = seg_ops.get_scan_segments(cp, maps[name].segments, tables,
                                         BEAMS, THETA_DIS)
-        inside = inside_raster(maps[name], cp, march)
+        inside = inside_raster(maps[name], cp, march, tables)
         seg_mse[name] = float(((march - seg) ** 2)[inside].mean())
         require(seg_mse[name] < 2.0,
                 f"segments vs march MSE {seg_mse[name]} on {name}")
@@ -1151,7 +1323,7 @@ def run(world_build):
         sims[engine].set_map(map_path("example_map"))
     cp = checks["example_map"]
     a, b = sims["march"].scan_batch(cp), sims["segments"].scan_batch(cp)
-    inside = inside_raster(sims["march"].map_data, cp, a)
+    inside = inside_raster(sims["march"].map_data, cp, a, sims["march"].tables)
     sim_mse = float(((a - b) ** 2)[inside].mean())
     require(sim_mse < 2.0, f"ScanSimulator2D segments vs march MSE {sim_mse}")
     emit("scan_sim", map_seconds=sim_map_s, kernel_scans=flat.shape[0],
@@ -1235,6 +1407,10 @@ def run(world_build):
     k1_extra = domain_randomization_phase(world, tables, card_name)
     del world
     k1_extra.update(trackgen_phase(dev, card_name))
+
+    # ---- 16. the sharded path; 17. the port's bench entry point
+    k1_extra.update(sharded_phase(m_ex, tables, poses_ex, dev, card_name))
+    k1_extra["bench_launches"] = bench_phase(card_name)
 
     print(json.dumps({"kernels": [{
         "name": "scan_kernel",

@@ -6,16 +6,23 @@ imports torch, numpy and scipy only. Entry points run on the card unless
 the caller passes ``device="cpu"``.
 """
 
+from f1tenth_gym_tpu_torch.version import __version__
 from f1tenth_gym_tpu_torch.config import (
     DEFAULT_PARAMS,
     INTEGRATOR_EULER,
     INTEGRATOR_RK4,
     MODEL_KS,
     MODEL_ST,
+    Integrator,
     SimConfig,
     resolve_device,
 )
-from f1tenth_gym_tpu_torch.core.env import env_reset, env_step, init_state
+from f1tenth_gym_tpu_torch.core.env import (
+    env_reset,
+    env_step,
+    init_state,
+    make_env_fns,
+)
 from f1tenth_gym_tpu_torch.core.simulator import sim_step
 from f1tenth_gym_tpu_torch.ops.lidar import make_scan_tables
 from f1tenth_gym_tpu_torch.parallel.vector import (
@@ -32,9 +39,11 @@ from f1tenth_gym_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from f1tenth_gym_tpu_torch.utils.map_loader import load_map, make_map_data
 
 __all__ = [
+    "__version__",
     "DEFAULT_PARAMS",
     "INTEGRATOR_EULER",
     "INTEGRATOR_RK4",
+    "Integrator",
     "MODEL_KS",
     "MODEL_ST",
     "MapData",
@@ -51,6 +60,7 @@ __all__ = [
     "load_map",
     "load_pytree",
     "make_autoreset_step",
+    "make_env_fns",
     "make_generator",
     "make_map_data",
     "make_scan_tables",

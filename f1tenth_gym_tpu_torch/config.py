@@ -1,7 +1,7 @@
 """Static simulation configuration, default vehicle parameters, devices.
 
-Port of ``f1tenth_gym_tpu/config.py`` (``SimConfig``, ``DEFAULT_PARAMS``
-and the LiDAR defaults). The scan engines are ``"march"`` (distance-field
+Port of ``f1tenth_gym_tpu/config.py`` (``SimConfig``, ``DEFAULT_PARAMS``,
+the ``Integrator`` shim and the LiDAR defaults). The scan engines are ``"march"`` (distance-field
 sphere marching, exact against the reference), ``"segments"`` (the
 ray/segment scan of ``ops/segments.py`` in torch ops), ``"kernel"`` (the
 hand-written CUDA ray/segment sweep of ``ops/scan_kernel.py``, plain torch
@@ -15,11 +15,25 @@ device when the map has a segment table and to ``"march"`` otherwise
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import torch
 
 INTEGRATOR_RK4 = "rk4"
 INTEGRATOR_EULER = "euler"
+
+
+class Integrator(enum.Enum):
+    """Drop-in shim for reference user code that passes
+    ``Integrator.RK4`` / ``Integrator.Euler`` (base_classes.py:40-42)."""
+
+    RK4 = INTEGRATOR_RK4
+    Euler = INTEGRATOR_EULER
+
+    @property
+    def name_str(self) -> str:
+        return self.value
+
 
 MODEL_ST = "st"  # 7-state single-track with the |v|<0.5 kinematic switch
 MODEL_KS = "ks"  # kinematic bicycle embedded in the 7-state layout

@@ -1,7 +1,7 @@
 """Environment layer of E envs: reset, step, lap bookkeeping, done.
 
 Port of ``f1tenth_gym_tpu/core/env.py`` (``init_state``, ``_update_laps``,
-``env_step``, ``env_reset``), the analogue of the reference's
+``env_step``, ``env_reset``, ``make_env_fns``), the analogue of the reference's
 ``F110Env`` (f110_env.py:53-418): reward == timestep, the finish-line
 toggle count in the ego start frame (f110_env.py:204-246), and a reset
 that performs the reference's zero-action step (f110_env.py:337-338).
@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from f1tenth_gym_tpu_torch.config import SimConfig
+from f1tenth_gym_tpu_torch.config import DEFAULT_SEED, SimConfig
 from f1tenth_gym_tpu_torch.core.simulator import sim_step
 from f1tenth_gym_tpu_torch.state import (
     IX_X,
@@ -120,3 +120,34 @@ def env_reset(poses: torch.Tensor, params: VehicleParams, map_data: MapData,
                           dtype=cfg.torch_dtype, device=poses.device)
     return env_step(state, actions, params, map_data, tables, cfg, timestep,
                     generator)
+
+
+def make_env_fns(params: VehicleParams, map_data: MapData, tables: ScanTables,
+                 cfg: SimConfig, timestep: float):
+    """Convenience factory: ``(reset(poses, generator=None),
+    step(state, actions, generator=None))``, closures over ``env_reset``
+    and ``env_step`` with the rest bound (JAX ``core/env.py:153``).
+
+    The envs run on the map's device, poses (E, A, 3) and actions (E, A, 2)
+    carry the env axis, and the scan noise comes from ``generator``, or
+    from one generator the factory seeds on the map's device when a call
+    passes none."""
+    dev = map_data.device
+    default_gen = torch.Generator(device=dev)
+    default_gen.manual_seed(DEFAULT_SEED)
+    # on the device once, so that no step copies it there
+    timestep = torch.as_tensor(timestep, dtype=cfg.torch_dtype, device=dev)
+
+    def reset(poses: torch.Tensor,
+              generator: Optional[torch.Generator] = None):
+        return env_reset(torch.as_tensor(poses).to(dev), params, map_data,
+                         tables, cfg, timestep, generator or default_gen)
+
+    def step(state: SimState, actions: torch.Tensor,
+             generator: Optional[torch.Generator] = None):
+        return env_step(state, torch.as_tensor(actions, dtype=cfg.torch_dtype,
+                                                device=dev), params,
+                        map_data, tables, cfg, timestep,
+                        generator or default_gen)
+
+    return reset, step

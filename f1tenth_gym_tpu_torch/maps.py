@@ -25,3 +25,12 @@ def map_path(name: str) -> str:
     if not os.path.exists(path):
         raise KeyError(f"unknown bundled map {name!r}; have {available_maps()}")
     return path
+
+
+def centerline_path(name: str) -> str:
+    """Absolute path to a bundled map's raceline csv."""
+    for suffix in ("_centerline.csv", "_waypoints.csv"):
+        path = os.path.join(_DIR, f"{name}{suffix}")
+        if os.path.exists(path):
+            return path
+    raise KeyError(f"no centerline for map {name!r}")

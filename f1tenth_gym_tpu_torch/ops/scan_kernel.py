@@ -16,7 +16,9 @@ One call is three steps:
 * ``sweep`` runs the sweep on what ``prepare`` made: the CUDA kernel for
   tensors on the card, the plain version ``sweep_plain`` for tensors on
   the CPU (and only there: a CUDA tensor launches the kernel or raises);
-* ``scan`` chains the two and unpads.
+* ``scan`` chains the two and unpads; ``scan_pallas`` and
+  ``scan_pallas_vmappable`` do the same behind the JAX package's
+  signatures.
 
 The kernel skips the rows whose arc, seen from the scan origin, misses a
 warp's beam chunk. ``skip_keep`` transcribes its keep test in plain torch,
@@ -631,3 +633,56 @@ def scan(pose: torch.Tensor, m: MapData, tables: ScanTables, num_beams: int,
     n = flat.shape[0]
     out = sweep(prepare_map(flat, m, tables, num_beams, theta_dis, culled))
     return out[:n].reshape(*batch_shape, num_beams).to(pose.dtype)
+
+
+def scan_pallas(pose: torch.Tensor, seg_table: torch.Tensor,
+                tables: ScanTables, num_beams: int, theta_dis: int,
+                interpret: bool = False, phases: str = "dirs,sweep,out",
+                tile_tables: Optional[torch.Tensor] = None,
+                tile_ngroups: Optional[torch.Tensor] = None,
+                tile_meta: Optional[torch.Tensor] = None,
+                tile_blockmap: Optional[torch.Tensor] = None,
+                tile_ext: Optional[torch.Tensor] = None,
+                elig_raster: Optional[torch.Tensor] = None,
+                elig_meta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's ``scan_pallas`` (pallas_scan.py:471) on
+    ``prepare`` and ``sweep``: pose (..., 3) -> ranges (..., num_beams) on
+    the poses' device. ``interpret=True`` runs the plain version
+    ``sweep_plain`` (on any device), as Pallas' interpret mode runs the
+    kernel's body; ``phases``, the JAX kernel's debug mask, takes only its
+    default. An erosion-gated pack (``tile_meta[5] >= 8``) without its
+    eligibility raster raises, as in the JAX package."""
+    if phases != "dirs,sweep,out":
+        raise ValueError("the port's scan kernel runs every phase")
+    meta_host = None
+    if tile_meta is not None:
+        meta_host = tuple(float(v) for v in tile_meta.cpu())
+        if elig_raster is None and meta_host[5] >= 8:
+            raise ValueError(
+                "erosion-gated culling pack used without its eligibility "
+                "raster: pass elig_raster/elig_meta (MapData.cull_eligible "
+                "+ [orig_x, orig_y, resolution]) to scan_pallas")
+    batch_shape = pose.shape[:-1]
+    flat = pose.reshape(-1, 3)
+    w = prepare(flat, seg_table, tables, num_beams, theta_dis,
+                tile_tables=tile_tables, tile_ngroups=tile_ngroups,
+                tile_meta=tile_meta, tile_meta_host=meta_host,
+                tile_blockmap=tile_blockmap, tile_ext=tile_ext,
+                elig_raster=elig_raster, elig_meta=elig_meta)
+    out = sweep_plain(w) if interpret else sweep(w)
+    return out[:flat.shape[0]].reshape(*batch_shape, num_beams).to(pose.dtype)
+
+
+def scan_pallas_vmappable(pose, seg_table, tables, num_beams, theta_dis,
+                          interpret=False, tile_tables=None,
+                          tile_ngroups=None, tile_meta=None,
+                          tile_blockmap=None, tile_ext=None,
+                          elig_raster=None, elig_meta=None):
+    """The JAX package's ``scan_pallas_vmappable`` (pallas_scan.py:670),
+    whose custom vmap rule folds every batch axis into one kernel call:
+    here ``scan_pallas`` on any leading batch axes is that one call."""
+    return scan_pallas(pose, seg_table, tables, num_beams, theta_dis,
+                       interpret=interpret, tile_tables=tile_tables,
+                       tile_ngroups=tile_ngroups, tile_meta=tile_meta,
+                       tile_blockmap=tile_blockmap, tile_ext=tile_ext,
+                       elig_raster=elig_raster, elig_meta=elig_meta)

@@ -6,7 +6,18 @@ from f1tenth_gym_tpu_torch.parallel.vector import (
     sort_envs_for_locality,
     uniform_pose_sampler,
 )
+from f1tenth_gym_tpu_torch.parallel.sharding import (
+    ENV_AXIS,
+    MODEL_AXIS,
+    env_batch_sharding,
+    make_mesh,
+    replicate,
+    replicated_sharding,
+    shard_env_pytree,
+    shard_states,
+)
 from f1tenth_gym_tpu_torch.parallel.rollout import Transition, rollout
+from f1tenth_gym_tpu_torch.parallel import multihost
 
 __all__ = [
     "batch_reset",
@@ -15,6 +26,15 @@ __all__ = [
     "make_generator",
     "uniform_pose_sampler",
     "sort_envs_for_locality",
+    "make_mesh",
+    "env_batch_sharding",
+    "replicated_sharding",
+    "shard_states",
+    "shard_env_pytree",
+    "replicate",
+    "ENV_AXIS",
+    "MODEL_AXIS",
     "rollout",
     "Transition",
+    "multihost",
 ]

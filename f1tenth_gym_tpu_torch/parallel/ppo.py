@@ -1,11 +1,45 @@
-"""PPO learner over a batch of envs on one device.
+"""PPO learner over a batch of envs, on one device or over a mesh of ranks.
 
 Port of ``f1tenth_gym_tpu/parallel/ppo.py``: the same ``PPOConfig``, the
 same actor-critic MLP, per-agent rewards, values and GAE (a crashing
 opponent never pollutes the ego's gradient), multi-epoch minibatch
 updates, entropy bonus and advantage normalization. The JAX package jits
-the whole iteration into one program over a mesh; here it is eager torch
-on one device (sharding and DDP wait for ``torch.distributed``).
+the whole iteration into one program over a mesh; here it is eager torch,
+one rank a device.
+
+``PPO(mesh=...)`` (a mesh of ``parallel/sharding.py``) gives the results
+of one process on the full batch, up to the order of the reductions:
+
+* rollout: each rank steps its shard of the envs. The policy noise is
+  drawn for the global (E, A, 2) shape from the learner's generator,
+  which every rank seeds alike, and each rank takes its rows. The step's
+  own generator (the scan noise) is per rank, seeded from
+  ``DEFAULT_SEED`` plus the rank's 'env' index, so the sharded scan noise
+  parts from the one-process stream (at world size 1 it is that stream);
+* advantages are normalised with the global mean and population std
+  (``all_reduce``);
+* each epoch draws the global permutation of the T * E_global samples;
+  each rank takes the samples of each minibatch that it owns (flat index
+  ``t * E + e``, owner ``e // E_local``) and backpropagates the sum of
+  their loss terms over the global minibatch size. The entropy term, which
+  depends only on ``pi_log_std``, is weighted by the rank's share of the
+  rows, so that the ranks' sum counts it once;
+* the gradients are summed over 'env' inside the backward pass, in the
+  compute dtype before the cast to the float32 parameters, so one
+  rounding to float32 remains, as in one process;
+* ``ClippedAdam``'s global-norm clip and Adam then run alike on every
+  rank; the metrics are global means;
+* over 'model' the MLP is split as JAX ``_shard_net_params`` splits it
+  (``:173-197``): ``fc1`` by output, ``fc2`` by input (Megatron's
+  column/row split), with ``fc2``'s partial products summed over 'model'
+  before its bias and tanh. ``fc1``'s bias is split with its kernel (the
+  JAX package keeps it whole; the sums are the same). The full weights
+  are drawn on every rank and then sliced, so ``init`` equals the
+  unsharded ``init``; the clip sums the split parameters' squared norms
+  over 'model' and counts the others once.
+
+At world size 1 no collective runs and every result is the unsharded
+learner's, bit for bit.
 
 Where the port follows flax and optax rather than torch's defaults:
 
@@ -34,14 +68,23 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from f1tenth_gym_tpu_torch.config import DEFAULT_SEED, SimConfig, resolve_device
+from f1tenth_gym_tpu_torch.parallel.sharding import (
+    ENV_AXIS,
+    MODEL_AXIS,
+    all_reduce_sum,
+    axis_group,
+    env_shard,
+    local_device,
+)
 from f1tenth_gym_tpu_torch.parallel.vector import batch_step, make_generator
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables, SimState, VehicleParams
 
@@ -70,9 +113,48 @@ class PPOConfig:
     crash_penalty: float = 10.0
 
 
+class _SumOverModel(torch.autograd.Function):
+    """Megatron's row-parallel reduction: the forward sums the partial
+    products over the 'model' group; the backward passes the gradient on,
+    since every rank holds the same gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GradSumOverEnv(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over the 'env'
+    group: applied to a parameter where the forward uses it, it reduces
+    that parameter's gradient in the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+def _used(p: torch.Tensor, dtype, env_group) -> torch.Tensor:
+    """Parameter ``p`` as the forward uses it: in ``dtype``, its gradient
+    summed over ``env_group`` (when there is one) before the cast back."""
+    p = p.to(dtype)
+    return p if env_group is None else _GradSumOverEnv.apply(p, env_group)
+
+
 class _Dense(nn.Module):
     """flax ``nn.Dense``: float32 parameters, computed in the input's
-    dtype. ``weight`` is (out, in), the transpose of flax's kernel."""
+    dtype. ``weight`` is (out, in), the transpose of flax's kernel.
+    ``env_group`` is set by ``ActorCritic.shard``."""
+
+    env_group = None
 
     def __init__(self, n_in: int, n_out: int, dev: torch.device):
         super().__init__()
@@ -88,8 +170,10 @@ class _Dense(nn.Module):
                                   b=2.0 * std, generator=generator)
             self.bias.zero_()
 
-    def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+    def forward(self, x, bias: bool = True):
+        g = self.env_group
+        w = _used(self.weight, x.dtype, g)
+        return F.linear(x, w, _used(self.bias, x.dtype, g) if bias else None)
 
 
 class ActorCritic(nn.Module):
@@ -98,7 +182,12 @@ class ActorCritic(nn.Module):
 
     ``forward(x) -> (mean, log_std, value)`` with ``log_std`` broadcast
     to ``mean``'s shape. The parameters hold uninitialized memory until
-    ``reset_parameters(generator)`` or a load fills them."""
+    ``reset_parameters(generator)`` or a load fills them. ``shard(mesh)``
+    splits the net over the mesh (module docstring)."""
+
+    # the parameters that ``shard`` splits over 'model'
+    MODEL_SPLIT = ("fc1.weight", "fc1.bias", "fc2.weight")
+    env_group = model_group = None
 
     def __init__(self, obs_dim: int, hidden: int, act_dim: int = 2,
                  dtype=torch.float32, device=None):
@@ -118,12 +207,43 @@ class ActorCritic(nn.Module):
             self.pi_log_std.fill_(-0.5)
         return self
 
+    def shard(self, mesh) -> "ActorCritic":
+        """Split over ``mesh`` in place (module docstring): the gradients
+        summed over its 'env' axis, ``fc1`` and ``fc2`` split over its
+        'model' axis. Nothing changes on a mesh of one rank."""
+        self.env_group = axis_group(mesh, ENV_AXIS)
+        for layer in (self.fc1, self.fc2, self.pi_mean, self.vf):
+            layer.env_group = self.env_group
+        group = self.model_group = axis_group(mesh, MODEL_AXIS)
+        if group is not None:
+            n, r = dist.get_world_size(group), dist.get_rank(group)
+            hidden = self.fc1.weight.shape[0]
+            if hidden % n:
+                raise ValueError(f"hidden {hidden} does not split over "
+                                 f"{n} 'model' shards")
+            cut = slice(r * hidden // n, (r + 1) * hidden // n)
+            self.fc1.weight = nn.Parameter(self.fc1.weight.detach()[cut].clone())
+            self.fc1.bias = nn.Parameter(self.fc1.bias.detach()[cut].clone())
+            self.fc2.weight = nn.Parameter(
+                self.fc2.weight.detach()[:, cut].clone())
+        return self
+
+    def log_std(self) -> torch.Tensor:
+        """``pi_log_std`` as the forward uses it."""
+        return _used(self.pi_log_std, self.pi_log_std.dtype, self.env_group)
+
     def forward(self, x):
         h = torch.tanh(self.fc1(x))
-        h = torch.tanh(self.fc2(h))
+        if self.model_group is None:
+            h = torch.tanh(self.fc2(h))
+        else:
+            part = _SumOverModel.apply(self.fc2(h, bias=False),
+                                       self.model_group)
+            h = torch.tanh(part + _used(self.fc2.bias, h.dtype,
+                                        self.env_group))
         mean = self.pi_mean(h)
         value = self.vf(h)[..., 0]
-        return mean, self.pi_log_std.expand(mean.shape), value
+        return mean, self.log_std().expand(mean.shape), value
 
 
 def featurize(obs: Dict[str, torch.Tensor], tables: ScanTables,
@@ -166,14 +286,18 @@ class ClippedAdam:
     The global norm is the square root of the sum of each gradient's
     squares, added in the sorted order of the names (flax's leaf order),
     each term promoting the total to the wider dtype, as optax's Python
-    ``sum`` does. Adam keeps its moments in each parameter's dtype and its
-    step count as an int64 tensor on the host.
+    ``sum`` does. With a ``model_group``, the squares of the parameters
+    named in ``split`` (each rank holds a slice) are summed over the group
+    and the others counted once. Adam keeps its moments in each
+    parameter's dtype and its step count as an int64 tensor on the host.
     """
 
     def __init__(self, named_params: Dict[str, torch.Tensor], lr: float,
                  max_grad_norm: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, model_group=None,
+                 split: Tuple[str, ...] = ()):
         self.params = dict(sorted(named_params.items()))
+        self.model_group, self.split = model_group, split
         self.lr, self.max_grad_norm = lr, max_grad_norm
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = torch.zeros((), dtype=torch.int64)
@@ -189,8 +313,12 @@ class ClippedAdam:
     @torch.no_grad()
     def step(self):
         grads = {k: p.grad for k, p in self.params.items()}
-        # optax's sum: in leaf order, each 0-d term promoting the total
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        # optax's sum: in leaf order, each 0-d term promoting the total;
+        # the split parameters' part first, summed over 'model'
+        split = all_reduce_sum(sum(torch.sum(grads[k] * grads[k])
+                                   for k in self.split), self.model_group)
+        norm = torch.sqrt(split + sum(torch.sum(g * g) for k, g in
+                                      grads.items() if k not in self.split))
         keep = norm < self.max_grad_norm
         self.count += 1
         n = int(self.count)
@@ -232,7 +360,9 @@ class TrainState:
 
 
 class PPO:
-    """PPO over a batched env on ``device`` (default: the card)."""
+    """PPO over a batched env on ``device`` (default: the card), or over
+    the ranks of ``mesh`` (module docstring; the device is then the
+    rank's)."""
 
     def __init__(
         self,
@@ -244,8 +374,14 @@ class PPO:
         ppo_cfg: PPOConfig = PPOConfig(),
         step_fn: Optional[Callable] = None,  # e.g. make_autoreset_step's
         device=None,
+        mesh=None,
     ):
+        if device is None and mesh is not None:
+            device = local_device(mesh)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._env_index, self._env_count = env_shard(mesh)
+        self._env_group = axis_group(mesh, ENV_AXIS)
         self.params = params
         self.map_data = map_data
         self.tables = tables
@@ -254,7 +390,8 @@ class PPO:
         self.pc = ppo_cfg
         self.step_fn = step_fn
         if step_fn is None:
-            self.env_generator = make_generator(self.device, DEFAULT_SEED)
+            self.env_generator = make_generator(
+                self.device, DEFAULT_SEED + self._env_index)
             # on the card once, so that no step copies it there
             self._timestep = torch.as_tensor(timestep, dtype=cfg.torch_dtype,
                                              device=self.device)
@@ -271,12 +408,15 @@ class PPO:
     # ------------------------------------------------------------- init
     def init(self, env_states: SimState,
              generator: torch.Generator) -> TrainState:
-        """Draw the net from ``generator``, which then stays the learner's."""
+        """Draw the net from ``generator``, which then stays the learner's
+        (under a mesh: the full net on every rank, then its slice)."""
         net = ActorCritic(self.pc.obs_beams + 2, self.pc.hidden,
                           dtype=self.cfg.torch_dtype,
                           device=self.device).reset_parameters(generator)
+        net.shard(self.mesh)
         opt = ClippedAdam(dict(net.named_parameters()), self.pc.lr,
-                          self.pc.max_grad_norm)
+                          self.pc.max_grad_norm, model_group=net.model_group,
+                          split=ActorCritic.MODEL_SPLIT)
         return TrainState(net, opt, env_states, generator, self.env_generator)
 
     # ------------------------------------------------------------- rollout
@@ -289,8 +429,12 @@ class PPO:
 
     def _policy(self, net, generator, feats):
         mean, log_std, value = net(feats)
-        noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+        # drawn for the global batch; this rank's rows (module docstring)
+        E = mean.shape[0]
+        noise = torch.randn((E * self._env_count,) + mean.shape[1:],
+                            generator=generator, dtype=mean.dtype,
                             device=mean.device)
+        noise = noise[self._env_index * E:(self._env_index + 1) * E]
         raw = mean + torch.exp(log_std) * noise
         logp = gaussian_logp(mean, log_std, raw)
         return raw, logp, value
@@ -347,19 +491,48 @@ class PPO:
         advs = torch.stack(advs)
         return advs, advs + values
 
-    def _loss(self, net, batch):
+    def _loss_part(self, net, batch, mb_size: int):
+        """This rank's part of the clipped PPO loss over a minibatch of
+        ``mb_size`` samples, of which ``batch`` holds the rank's: the ranks'
+        parts sum to the loss (module docstring). Returns (part, aux) with
+        the rank's parts of the policy and value terms and the entropy."""
         pc = self.pc
         mean, log_std, value = net(batch["feats"])
         logp = gaussian_logp(mean, log_std, batch["raw"])
         ratio = torch.exp(logp - batch["logp"])
         adv = batch["adv"]  # (N, A): per-agent advantages
+        n = mb_size * adv.shape[-1]
         pg1 = ratio * adv
         pg2 = torch.clamp(ratio, 1 - pc.clip_eps, 1 + pc.clip_eps) * adv
-        pg_loss = -torch.minimum(pg1, pg2).mean()
-        v_loss = 0.5 * ((value - batch["ret"]) ** 2).mean()
-        ent = torch.sum(log_std + 0.5 * math.log(2 * np.pi * np.e), -1).mean()
-        total = pg_loss + pc.vf_coef * v_loss - pc.ent_coef * ent
+        pg_loss = -torch.minimum(pg1, pg2).sum() / n
+        v_loss = 0.5 * ((value - batch["ret"]) ** 2).sum() / n
+        ent = torch.sum(net.log_std() + 0.5 * math.log(2 * np.pi * np.e))
+        share = adv.shape[0] / mb_size
+        total = pg_loss + pc.vf_coef * v_loss - pc.ent_coef * share * ent
         return total, dict(pg=pg_loss, vf=v_loss, ent=ent)
+
+    def _loss(self, net, batch):
+        """The loss of ``batch`` as one whole minibatch (JAX ``_loss``)."""
+        return self._loss_part(net, batch, batch["adv"].shape[0])
+
+    def _mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the global batch."""
+        return (all_reduce_sum(x.sum(), self._env_group)
+                / (x.numel() * self._env_count))
+
+    def _normalize(self, advs: torch.Tensor) -> torch.Tensor:
+        """Advantages less their mean over their population std, over the
+        global batch."""
+        mean = self._mean(advs)
+        std = torch.sqrt(self._mean((advs - mean) ** 2))
+        return (advs - mean) / (std + 1e-8)
+
+    def _own(self, take: torch.Tensor, E: int) -> torch.Tensor:
+        """The local flat indices of the samples of ``take`` (global flat
+        indices ``t * E_global + e``) whose env is this rank's."""
+        t, e = take // (E * self._env_count), take % (E * self._env_count)
+        mine = e // E == self._env_index
+        return (t * E + e - self._env_index * E)[mine]
 
     # ------------------------------------------------------------- train
     def update(self, ts: TrainState, traj, value_T):
@@ -367,7 +540,7 @@ class PPO:
         (in place). Returns (ts, metrics) with 0-d tensor metrics."""
         pc = self.pc
         advs, returns = self._gae(traj, value_T)
-        advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+        advs = self._normalize(advs)
 
         T, E, A = advs.shape
         flat = dict(
@@ -377,25 +550,28 @@ class PPO:
             adv=advs.reshape(T * E, A),
             ret=returns.reshape(T * E, A),
         )
-        mb_size = (T * E) // pc.minibatches
+        n_all = T * E * self._env_count
+        mb_size = n_all // pc.minibatches
         epoch_losses = []
         for _ in range(pc.epochs):
-            perm = torch.randperm(T * E, generator=ts.generator,
+            perm = torch.randperm(n_all, generator=ts.generator,
                                   device=advs.device)
             losses = []
             for i in range(pc.minibatches):
-                take = perm[i * mb_size:(i + 1) * mb_size]
+                take = self._own(perm[i * mb_size:(i + 1) * mb_size], E)
                 batch = {k: v[take] for k, v in flat.items()}
                 ts.opt.zero_grad()
-                loss, _ = self._loss(ts.net, batch)
+                loss, _ = self._loss_part(ts.net, batch, mb_size)
                 loss.backward()
                 ts.opt.step()
                 losses.append(loss.detach())
-            epoch_losses.append(torch.stack(losses).mean())
+            epoch_losses.append(torch.stack(losses))
+        # the ranks' parts of each minibatch's loss sum to its loss
+        losses = all_reduce_sum(torch.stack(epoch_losses), self._env_group)
         metrics = dict(
-            loss=torch.stack(epoch_losses).mean(),
-            mean_reward=traj["reward"].mean(),
-            crash_rate=traj["done"].to(traj["reward"].dtype).mean(),
+            loss=torch.stack([row.mean() for row in losses]).mean(),
+            mean_reward=self._mean(traj["reward"]),
+            crash_rate=self._mean(traj["done"].to(traj["reward"].dtype)),
         )
         return ts, metrics
 

@@ -22,17 +22,28 @@ checking every keypath, shape and dtype; it fills modules, optimizers and
 generators of the target in place and returns the rebuilt tree. Nothing
 is ever unpickled: the JAX package's ``__treedef__`` entry is ignored, and
 without a target the file loads as a flat ``{keypath: array}`` dict.
+
+``save_orbax``/``load_orbax`` (JAX ``:98-114``) are the sharded form, on
+``torch.distributed.checkpoint``: every rank calls them, and the files
+are torch's distributed-checkpoint format, not orbax's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Iterator, List, Optional, Tuple
+import warnings
+from typing import Any, Iterator, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.distributed.checkpoint as dcp
 from torch import nn
+
+from f1tenth_gym_tpu_torch.config import resolve_device
+from f1tenth_gym_tpu_torch.parallel.sharding import env_batch_sharding
+from f1tenth_gym_tpu_torch.state import SimState, VehicleParams
 
 
 def _is_dataclass(obj) -> bool:
@@ -128,14 +139,26 @@ def _rebuild(target, arrays: Iterator[Tuple[str, np.ndarray]]):
     return arr.item()
 
 
-def load_pytree(path: str, target: Optional[Any] = None) -> Any:
+def load_pytree(path: str, target: Optional[Any] = None, device=False,
+                allow_pickle: bool = False) -> Any:
     """Load a file written by ``save_pytree`` (either package's).
 
     With ``target`` (a tree of the expected structure, e.g. a freshly
     built ``TrainState``), the leaves are restored into its structure
     after checking that the keypaths match, and each leaf's shape and
     dtype; tensors land on the target leaf's device. Without a target,
-    returns ``{keypath: numpy array}``."""
+    returns ``{keypath: leaf}``: numpy arrays when ``device`` is False (the
+    default), tensors on the card when it is True, else tensors on the
+    device it names.
+
+    ``allow_pickle=True`` is the JAX package's way to rebuild the stored
+    tree structure by unpickling it. The port never unpickles, so it
+    raises: pass ``target=`` for the structure instead."""
+    if allow_pickle:
+        raise ValueError(
+            "load_pytree never unpickles a stored tree structure; pass "
+            "target=<template tree> to restore into a structure (or no "
+            "target for a flat {keypath: leaf} dict)")
     if not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path, allow_pickle=False) as z:
@@ -143,6 +166,9 @@ def load_pytree(path: str, target: Optional[Any] = None) -> Any:
         leaves = [z[f"leaf_{i}"] for i in range(n)]
         keypaths = [str(k) for k in z["__keypaths__"]]
     if target is None:
+        if device is not False:
+            dev = resolve_device(None if device is True else device)
+            leaves = [torch.from_numpy(x).to(dev) for x in leaves]
         return dict(zip(keypaths, leaves))
     want = [kp for kp, _ in _leaves(target)]
     if len(want) != n:
@@ -155,3 +181,71 @@ def load_pytree(path: str, target: Optional[Any] = None) -> Any:
             f"file has {keypaths[bad]!r}, target has {want[bad]!r}")
     return _rebuild(target, iter(zip(keypaths, leaves)))
 
+
+def _env_sharded(tree, prefix: str = "") -> Set[str]:
+    """Keypaths of the leaves of ``tree`` that lead with the env axis and
+    are split over 'env' under a mesh: every leaf of a ``SimState``, and
+    the (E, 1) leaves of a ``VehicleParams`` (``sharding.replicate``)."""
+    if isinstance(tree, SimState):
+        return {kp for kp, _ in _leaves(tree, prefix)}
+    if isinstance(tree, VehicleParams):
+        return {kp for kp, leaf in _leaves(tree, prefix) if leaf.dim() == 2}
+    kids = None if tree is None else _children(tree)
+    return set().union(*(_env_sharded(child, prefix + frag)
+                         for frag, child in kids or ()))
+
+
+def _as_tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Generator):
+        return leaf.get_state()
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach()
+    return torch.as_tensor(np.asarray(leaf))
+
+
+def _dcp_state(tree, mesh, fill):
+    """{keypath: tensor} of ``tree``'s leaves (``fill`` makes each from the
+    leaf), the env-sharded ones as the global ``DTensor`` under a mesh."""
+    sharded = _env_sharded(tree) if mesh is not None else set()
+    view = env_batch_sharding(mesh).global_view if mesh is not None else None
+    return {kp: view(fill(_as_tensor(leaf))) if kp in sharded
+            else fill(_as_tensor(leaf))
+            for kp, leaf in _leaves(tree)}
+
+
+def _dcp(fn, state, path):
+    with warnings.catch_warnings():
+        # the one-process form warns that it assumes one process
+        warnings.simplefilter("ignore", UserWarning)
+        fn(state, checkpoint_id=path, no_dist=not dist.is_initialized())
+
+
+def save_orbax(path: str, tree: Any, mesh=None) -> str:
+    """Save ``tree`` with ``torch.distributed.checkpoint`` into directory
+    ``path``: every rank of the process group calls it (or one process
+    without a group). The files are torch's format, not orbax's.
+
+    Keys are ``save_pytree``'s keypaths. Under ``mesh`` the env-sharded
+    leaves (those of a ``SimState``, and a ``VehicleParams``' (E, 1)
+    leaves) are saved as their global batch, each rank writing its rows,
+    so that a checkpoint written at one world size loads at another; the
+    other leaves are taken as replicated and written once. A ``shard``-ed
+    net's split parameters are not whole on any rank: save a split net
+    through ``convert.actor_critic_to_numpy``. Returns the absolute
+    path."""
+    path = os.path.abspath(path)
+    _dcp(dcp.save, _dcp_state(tree, mesh, lambda t: t.contiguous()), path)
+    return path
+
+
+def load_orbax(path: str, target: Any, mesh=None) -> Any:
+    """Restore a ``save_orbax`` checkpoint into the structure of
+    ``target`` (as ``load_pytree`` does, leaves checked by shape and
+    dtype). Under ``mesh`` each rank reads the rows of the env-sharded
+    leaves that its 'env' index owns, whatever world size wrote them."""
+    path = os.path.abspath(path)
+    state = _dcp_state(target, mesh, torch.empty_like)
+    _dcp(dcp.load, state, path)
+    arrays = ((kp, (t.to_local() if hasattr(t, "to_local") else t)
+               .cpu().numpy()) for kp, t in state.items())
+    return _rebuild(target, arrays)

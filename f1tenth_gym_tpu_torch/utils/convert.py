@@ -21,6 +21,7 @@ import torch
 
 from f1tenth_gym_tpu_torch.config import resolve_device
 from f1tenth_gym_tpu_torch.parallel.ppo import ActorCritic
+from f1tenth_gym_tpu_torch.parallel.sharding import all_gather_cat, local_device
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables, SimState, VehicleParams
 
 
@@ -70,13 +71,17 @@ def to_numpy(obj) -> Dict[str, np.ndarray]:
 _DENSE_LAYERS = ("fc1", "fc2", "pi_mean", "vf")
 
 
-def actor_critic_from_flax(params, device=None):
+def actor_critic_from_flax(params, device=None, mesh=None):
     """The port's ``ActorCritic`` holding the weights of a flax
     ``ActorCritic``: ``params`` is its nested dict of numpy arrays,
     ``{'params': {'fc1': {'kernel', 'bias'}, 'fc2': ..., 'pi_mean': ...,
     'vf': ..., 'pi_log_std'}}``. A flax kernel is (in, out), so each
     ``weight`` is its transpose; ``pi_log_std`` keeps its dtype, which
-    becomes the module's sim dtype."""
+    becomes the module's sim dtype. Under a ``mesh`` the full tree comes
+    in and the net takes this rank's slice (``ActorCritic.shard``); the
+    device is then the rank's unless ``device`` says otherwise."""
+    if device is None and mesh is not None:
+        device = local_device(mesh)
     p = params["params"]
     log_std = np.asarray(p["pi_log_std"])
     kernel = np.asarray(p["fc1"]["kernel"])
@@ -90,15 +95,22 @@ def actor_critic_from_flax(params, device=None):
                 np.asarray(p[name]["kernel"]).T.copy()))
             layer.bias.copy_(torch.from_numpy(np.array(p[name]["bias"])))
         net.pi_log_std.copy_(torch.from_numpy(log_std.copy()))
-    return net
+    return net.shard(mesh)
 
 
 def actor_critic_to_numpy(net) -> Dict[str, Dict]:
     """The inverse of ``actor_critic_from_flax``: the flax parameter dict
     of ``net`` as numpy arrays (the layout ``save_pytree`` of a flax
-    ``net_params`` writes)."""
-    p = {name: {"kernel": getattr(net, name).weight.detach().cpu().numpy().T,
-                "bias": getattr(net, name).bias.detach().cpu().numpy()}
+    ``net_params`` writes). A net split over 'model' is gathered whole:
+    every rank of its group must call this."""
+    def whole(name, part):
+        t = getattr(getattr(net, name), part).detach()
+        if f"{name}.{part}" in ActorCritic.MODEL_SPLIT:
+            t = all_gather_cat(t, net.model_group,
+                               dim=1 if name == "fc2" else 0)
+        return t.cpu().numpy().copy()
+
+    p = {name: {"kernel": whole(name, "weight").T, "bias": whole(name, "bias")}
          for name in _DENSE_LAYERS}
-    p["pi_log_std"] = net.pi_log_std.detach().cpu().numpy()
+    p["pi_log_std"] = net.pi_log_std.detach().cpu().numpy().copy()
     return {"params": p}
