@@ -120,14 +120,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              weak-scaling stand-in over 1, 2, 4 and 8 gloo processes on
              the machine's CPU, whose rates say nothing about the card):
              the keys of its line, its gates under 2.0, one K1 launch a
-             timed step.
+             timed step;
+18. tools  — the probes of f1tenth_gym_tpu_torch/tools in-process, at
+             reduced reps and steps: ``kernel_phases`` (each masked output
+             of K1 bit for bit its plain version on 8192 bench scans, and
+             the three phase times); ``kernel_sweep`` at 1.25 m (the main
+             path's pack, no split blocks) over warps 5, 9 and 16, chunk
+             64 and 128, sub 4 and 8 (and 1, 2 and 16 at 9 warps of 128
+             beams), the skip on and off, every row bit for bit the
+             default row, and at 0.85 m and 2.5 m (split packs, the
+             probe's split cap 96) over warps 9 and 16, bit for bit that
+             size's default row, and sub 4 at 0.85 m held to the
+             vertex-leak rule; ``step_trace single`` and ``multi`` (busy
+             share in (0, 1], K1 in the profile with one launch a step);
+             ``ppo_profile`` at world size 1 on the card (busy share) and
+             over 2 gloo ranks on the one card (collective share in (0,
+             1]); ``step_probe`` and ``step_variants`` (every key with a
+             counterpart; their K2 launches); ``culling_stats`` and
+             ``rect_tier_estimate`` at 1.25 m. Their packs at 0.85 m and
+             2.5 m are built in a process of their own from the start of
+             the run.
 
 A kernel's time is the CUDA-event time a launch of a CUDA graph of
 launches (``kernel_ms``), printed beside the eager launches' time and the
 host's enqueue time a call, which is of the same order as the kernels.
 Then the ``kernels`` line (K1's entry carries its launches on each path:
 ``launches`` on the main path, and those of the later phases, among them
-``sharded_launches``, ``sharded_rank_launches`` and ``bench_launches``),
+``sharded_launches``, ``sharded_rank_launches``, ``bench_launches`` and
+``tools_launches``; K2's carries the probes' ``tools_launches``),
 the card's name and power limit, and the result line. Exits non-zero without a result when no CUDA device is present.
 """
 
@@ -182,6 +202,15 @@ SHARD_PPO_TURNS = 4         # timed PPO iterations, plain and mesh in turn
 RANKS, RANK_STEPS = 2, 16   # ranks on the one card (gloo), their steps
 RANK_PPO_ATOL = 1e-5        # 2-rank PPO parameters vs one process (f32)
 RANK_TIMEOUT_S = 300.0
+TOOL_REPS, TOOL_TRACE_STEPS, TOOL_SV_STEPS = 20, 4, 8   # phase tools
+TOOL_RANKS = 2
+# kernel_sweep rows (warps:chunk:ts:sub): the main path's pack at 1.25 m,
+# and split packs (split cap 96, the probe's) at 0.85 m and 2.5 m
+SWEEP_MAIN = [f"{w}:{c}:1.25:{s}" for w in (9, 5, 16) for c in (128, 64)
+              for s in (8, 4)] + [f"9:128:1.25:{s}" for s in (1, 2, 16)]
+SWEEP_SPLIT = ["9:128:0.85", "16:128:0.85", "9:128:0.85:4", "9:128:2.5",
+               "16:128:2.5"]
+SWEEP_SPLIT_CAP = 96
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "scan_mse_by_map",
               "ittc_collision_gate", "weak_scaling_retention_8shard",
               "weak_scaling_total_rates")
@@ -203,6 +232,9 @@ def bench_poses(m, seed, **kw):
     return _bench_poses(m, seed, ENVS, AGENTS, **kw)
 
 
+# cuda_ms, kernel_ms and other_agent_boxes are tools/common.py's too: they
+# stay defined here because ab_kernels.py loads this module's helpers with
+# another tree's package, which may predate the tools
 def cuda_ms(fn, iters):
     """Mean CUDA-event time of ``fn`` over ``iters`` calls, after three
     warm-up calls."""
@@ -672,6 +704,26 @@ def start_world_build():
                             stdout=subprocess.PIPE, text=True)
 
 
+def start_sweep_packs():
+    """Build example_map's split packs at the tile sizes of phase 18's
+    knob sweep (SWEEP_SPLIT, split cap SWEEP_SPLIT_CAP) in a process of
+    its own, on the CPU, into the pack cache. Returns the process; its one
+    output line is a JSON object."""
+    sizes = sorted({float(spec.split(":")[2]) for spec in SWEEP_SPLIT})
+    code = (
+        "import json, time\n"
+        "import f1tenth_gym_tpu_torch as P\n"
+        "from f1tenth_gym_tpu_torch.maps import map_path\n"
+        "t = time.time()\n"
+        f"for ts in {sizes!r}:\n"
+        "    P.load_map(map_path('example_map'), extract_segments=True, "
+        "tile_culling=True, culling_tile_size=ts, "
+        f"culling_split_cap={SWEEP_SPLIT_CAP}, device='cpu')\n"
+        "print(json.dumps(dict(seconds=time.time() - t)))\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, text=True)
+
+
 def world_poses(world, sort):
     """The sampler's (DR_ENVS, AGENTS, 3) poses of ``world`` (generator
     seed 7, as ``make_world`` draws them), in the order ``sort`` gives the
@@ -1100,22 +1152,147 @@ def bench_phase(card_name):
     return launches
 
 
+def top_names(by_name, n=15, width=100):
+    """The first ``n`` entries of a ``device_time_by_name`` table as
+    [name cut to ``width`` characters, ms a step, calls a step]: a kernel's
+    full name runs to hundreds of characters."""
+    return [[k[:width], v["ms_per_step"], v["calls_per_step"]]
+            for k, v in list(by_name.items())[:n]]
+
+
+def tools_phase(dev, card_name, packs):
+    """The probes on the card (module docstring, phase 18); ``packs`` is
+    ``start_sweep_packs``' process. Returns the launches of K1 and of K2
+    in the phase."""
+    from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+    from f1tenth_gym_tpu_torch.tools import (
+        common,
+        culling_stats,
+        kernel_phases,
+        kernel_sweep,
+        ppo_profile,
+        rect_tier_estimate,
+        step_probe,
+        step_trace,
+        step_variants,
+    )
+
+    t_phase = time.time()
+    sk.sweep.launches = 0
+    ok.overlay.launches = 0
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.time() - t_phase - sum(seconds.values())
+
+    # K1's phase mask (run() holds every mask to its plain version)
+    phases = kernel_phases.run(ENVS * AGENTS, BEAMS, 1.25, TOOL_REPS, dev)
+    lap("kernel_phases")
+
+    # the knob sweep: the main path's pack, then the split packs
+    def swept(specs, skips, cap):
+        rows, outs, loads = kernel_sweep.sweep_rows(
+            specs, skips, ENVS * AGENTS, BEAMS, TOOL_REPS, cap=cap,
+            device=dev)
+        problems = kernel_sweep.compare(rows, outs, loads, BEAMS)
+        require(not problems, f"kernel_sweep: {problems}")
+        return rows
+
+    main_rows = swept(SWEEP_MAIN, (True, False), 0)
+    require(all(r["beams_differing_from_default"] == 0 for r in main_rows),
+            "kernel_sweep at 1.25 m: a row parts from the default row")
+    out, _ = packs.communicate()
+    require(packs.returncode == 0,
+            f"the sweep's pack build failed ({packs.returncode})")
+    pack_s = json.loads(out.strip().splitlines()[-1])["seconds"]
+    split_rows = swept(SWEEP_SPLIT, (True,), SWEEP_SPLIT_CAP)
+    require(all(r["beams_differing_from_default"] == 0
+                for r in split_rows if r["sub"] == sk.SUB),
+            "kernel_sweep at 0.85 / 2.5 m: a row of the default sub parts "
+            "from its default row")
+    default = next(r for r in main_rows if (r["warps"], r["chunk"], r["sub"],
+                                            r["skip"]) == (9, 128, 8, True))
+    fastest = min(main_rows, key=lambda r: r["kernel_ms"])
+    lap("kernel_sweep")
+
+    # step_trace: the racing step and the 16-track step (its pack from
+    # the cache that phase 13 filled)
+    traces = {}
+    for kind, envs in (("single", ENVS), ("multi", DR_ENVS)):
+        t = step_trace.trace(kind, envs, TOOL_TRACE_STEPS, BEAMS, DR_TRACKS,
+                             DR_SEED, dev)
+        require(0 < t["busy_share"] <= 1, f"step_trace {kind}: busy share "
+                f"{t['busy_share']}")
+        require(t["k1"]["calls_per_step"] == 1
+                and t["k1_wrapper_launches"] == TOOL_TRACE_STEPS,
+                f"step_trace {kind}: K1 {t['k1']}, "
+                f"{t['k1_wrapper_launches']} wrapper launches")
+        names = list(t["by_name"])
+        traces[kind] = dict(
+            {k: v for k, v in t.items() if k != "by_name"},
+            k1_rank=next(i for i, n in enumerate(names)
+                         if common.K1_NAME in n),
+            names=len(names), top=top_names(t["by_name"]))
+        lap(f"step_trace_{kind}")
+
+    # ppo_profile: world size 1 on the card, then gloo ranks on it
+    w1 = ppo_profile.profile_world1(device=dev)
+    require(0 < w1["busy_share"] <= 1, f"ppo_profile: busy share "
+            f"{w1['busy_share']}")
+    lap("ppo_profile_world1")
+    ranks = ppo_profile.profile_ranks(TOOL_RANKS, device=dev,
+                                      timeout_s=RANK_TIMEOUT_S)
+    require(all(0 < x <= 1 for x in ranks["shares"]),
+            f"ppo_profile: collective shares {ranks['shares']}")
+    lap("ppo_profile_ranks")
+
+    probe = step_probe.probe(ENVS, 1.25, ("scan", "overlay", "step"), BEAMS,
+                             sk.SUB, dev)
+    variants = step_variants.variants(step_variants.KEYS, ENVS,
+                                      TOOL_SV_STEPS, BEAMS, dev)
+    require(probe["k2_launches"] > 0 and variants["k2_launches"] > 0,
+            "step_probe / step_variants launched no overlay kernel")
+    lap("step_probe_variants")
+    stats = culling_stats.run(1.25, ENVS, sk.SUB, BEAMS, "cpu")
+    rect = rect_tier_estimate.run(1.25, ENVS, sk.SUB, "cpu")
+    lap("host_probes")
+    k1, k2 = sk.sweep.launches, ok.overlay.launches
+    require(k1 > 0 and k2 > 0, f"tools: {k1} K1 and {k2} K2 launches")
+    emit("tools", card=card_name, kernel_phases=phases,
+         kernel_sweep=dict(main_pack=main_rows, split_packs=split_rows,
+                           split_pack_build_seconds=pack_s,
+                           default_ms=default["kernel_ms"],
+                           fastest=fastest),
+         step_trace=traces,
+         ppo_profile=dict(world1={k: v for k, v in w1.items()
+                                  if k != "by_name"},
+                          world1_top=top_names(w1["by_name"]),
+                          ranks=ranks),
+         step_probe=probe, step_variants=variants, culling_stats=stats,
+         rect_tier_estimate=rect, k1_launches=k1, k2_launches=k2,
+         seconds=seconds, phase_seconds=time.time() - t_phase)
+    return k1, k2
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    world_build = start_world_build()
+    builds = [start_world_build(), start_sweep_packs()]
     try:
-        return run(world_build)
+        return run(*builds)
     finally:
-        if world_build.poll() is None:
-            world_build.kill()
-        world_build.stdout.close()
-        world_build.wait()
+        for proc in builds:
+            if proc.poll() is None:
+                proc.kill()
+            proc.stdout.close()
+            proc.wait()
 
 
-def run(world_build):
-    """Phases 1-17; ``world_build`` is ``start_world_build``'s process."""
+def run(world_build, sweep_packs):
+    """Phases 1-18; ``world_build`` and ``sweep_packs`` are the processes
+    of ``start_world_build`` and ``start_sweep_packs``."""
     import f1tenth_gym_tpu_torch as P
     from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
     from f1tenth_gym_tpu_torch.maps import map_path
@@ -1123,6 +1300,7 @@ def run(world_build):
     from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
     from f1tenth_gym_tpu_torch.ops import segments as seg_ops
+    from f1tenth_gym_tpu_torch.tools import common as tools_common
     from f1tenth_gym_tpu_torch.utils import native
 
     dev = torch.device("cuda")
@@ -1140,9 +1318,18 @@ def run(world_build):
                  "overlay_kernel": f_overlay.result()}
         f_native.result()
     build_s = time.time() - t0
-    report = {name: [ln.strip() for ln in out.splitlines()
-                     if "registers" in ln or "spill" in ln]
-              for name, out in ptxas.items()}
+    # K1: one instantiation per (phase mask, subgroup size); the main
+    # path's is the full mask at the default subgroup size
+    variants = sk.resources(ptxas["scan_kernel"])
+    prod = variants.get((sk.phase_mask(sk.FULL_PHASES), sk.SUB))
+    require(prod is not None and len(variants) == 4 * len(sk.SUBS),
+            f"scan kernel instantiations: {sorted(variants)}")
+    require(all(v["spill_bytes"] == 0 for v in variants.values()),
+            f"scan kernel spills: {variants}")
+    report = {"scan_kernel": prod, "scan_kernel_variants": {
+        f"phases={p},sub={q}": v for (p, q), v in sorted(variants.items())},
+        "overlay_kernel": [ln.strip() for ln in ptxas["overlay_kernel"]
+                           .splitlines() if "registers" in ln or "spill" in ln]}
     emit("build", seconds=build_s, ptxas=report, occupancy={
         "scan_kernel": sk.occupancy(ENVS * AGENTS, BEAMS),
         "overlay_kernel": ok.occupancy(ENVS * AGENTS, BEAMS)})
@@ -1203,26 +1390,15 @@ def run(world_build):
 
     def leak_beams(m, flat, k_c, k_f, label):
         """Count the beams on which culled != full, and require each to be
-        a vertex leak: a beam through the shared vertex of two wall
-        segments can fail both f32 hit tests and pass through the wall
-        (the TPU kernel's formulation, kept bit for bit;
+        a vertex leak (``tools.common.vertex_leaks``: a beam through the
+        shared vertex of two wall segments can fail both f32 hit tests,
+        the TPU kernel's formulation, kept bit for bit;
         tests/test_torch_scan_kernel.py pins one such beam on the split
-        pack), and the full sweep then finds a wall behind it that the
-        culled table rightly left out. So both sweeps must overshoot the
-        marched range by more than the contour tolerance: a culled table
-        missing a visible wall fails this, since the full sweep would then
-        agree with the march."""
-        n = flat.shape[0]
-        diff = k_c[:n] != k_f[:n]
-        rows = diff.any(-1).nonzero().flatten()
-        if rows.numel():
-            march = lidar_ops.get_scan(flat[rows], m, tables, BEAMS,
-                                       THETA_DIS)
-            d = diff[rows]
-            nearer = torch.minimum(k_c[rows][d], k_f[rows][d])
-            require(bool((march[d] < nearer - 0.5).all()),
-                    f"{label}: culled != full on a beam that is no leak")
-        return int(diff.sum())
+        pack)."""
+        n, leaks = tools_common.vertex_leaks(m, flat, k_c, k_f, tables,
+                                             BEAMS)
+        require(leaks, f"{label}: culled != full on a beam that is no leak")
+        return n
 
     poses_ex = bench_poses(m_ex, 7, component_seed=(0.7, 0.0))
     flat = poses_ex.reshape(-1, 3)
@@ -1369,7 +1545,7 @@ def run(world_build):
     t_culled = kernel_ms(lambda: sk.sweep(w_c), 50)
     t_full = kernel_ms(lambda: sk.sweep(w_f), 20)
     # the same kernel with its row skip off: every pair tested
-    t_noskip = kernel_ms(lambda: sk._sweep_cuda(w_c, skip=False), 20)
+    t_noskip = kernel_ms(lambda: sk.sweep(w_c, skip=False), 20)
     ms_plain = cuda_ms(lambda: sk.sweep_plain(w_c), 3)
     pairs = {"culled": sk.pair_counts(w_c), "full": sk.pair_counts(w_f)}
     require(pairs["culled"]["missed"] == 0 and pairs["full"]["missed"] == 0,
@@ -1411,6 +1587,10 @@ def run(world_build):
     # ---- 16. the sharded path; 17. the port's bench entry point
     k1_extra.update(sharded_phase(m_ex, tables, poses_ex, dev, card_name))
     k1_extra["bench_launches"] = bench_phase(card_name)
+
+    # ---- 18. the probes
+    k1_extra["tools_launches"], overlay_entry["tools_launches"] = \
+        tools_phase(dev, card_name, sweep_packs)
 
     print(json.dumps({"kernels": [{
         "name": "scan_kernel",

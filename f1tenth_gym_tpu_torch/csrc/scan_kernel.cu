@@ -94,6 +94,20 @@
 // pi/2 or more (few beams over a wide fan) tests every row, and so does
 // every warp when the caller passes skip = 0.
 //
+// Phase mask (the JAX kernel's debug mask, pallas_scan.py:323-330, :379):
+// a template parameter. kDirs alone loads the scan's scalars, builds its
+// beams' directions and its chunk's sector, and stores each beam's
+// direction x-component; kSweep adds the row stream and stores the raw
+// accumulator (the max inverse range, before the epilogue); kOut alone
+// runs the epilogue on a zero accumulator (max_range everywhere). Work
+// whose result a variant does not store goes into an empty asm statement,
+// so that the compiler keeps it and the phase times measure it. The
+// production variant (all three) has none of it and compiles as before.
+// The subgroup size (scans that share one table choice) is a template
+// parameter too, instantiated for 1, 2, 4, 8 and 16. The JAX kernel's EA
+// (scans per Pallas program) has no counterpart: a launch here is one
+// block per (scan, group of beam chunks).
+//
 // Not used, and why: tensor cores (the contraction has depth 2 in f32,
 // and TF32 keeps ~10 bits: it would break the bit-exact gate and the
 // ranges); TMA (a subgroup's table is ~2 KB at the main path, and copies
@@ -106,13 +120,13 @@
 namespace {
 
 constexpr int kGroup = 8;        // rows per segment group
-constexpr int kSub = 8;          // scans per subgroup (one table choice)
 constexpr int kScal = 8;         // floats per scan scalar row
 constexpr int kStage = 256;      // rows staged at a time
 constexpr int kMaxWarps = 16;    // beam chunks (warps) per block
 constexpr unsigned kFull = 0xffffffffu;
 
 enum RowCode : int { kDrop = 0, kArc = 1, kKeep = 2 };
+enum Phase : int { kDirs = 1, kSweep = 2, kOut = 4 };
 
 struct Terms {                   // per (scan, row) of one stage
   float4 row[kStage];            // nx, ny, tx, ty
@@ -152,6 +166,9 @@ __device__ __forceinline__ bool in_arc(float vx, float vy, float4 pq) {
          cross(vx, vy, pq.z, pq.w) >= 0.0f;
 }
 
+// keeps the work behind v, which a masked variant does not store
+__device__ __forceinline__ void keep(float v) { asm volatile("" ::"f"(v)); }
+
 __device__ __forceinline__ float hit(const float4 row, const float2 iu,
                                      float dx, float dy) {
   const float den = row.x * dx + row.y * dy;
@@ -164,6 +181,7 @@ __device__ __forceinline__ float hit(const float4 row, const float2 iu,
 
 // at most 42 registers (3 blocks of the largest shape an SM): 5 blocks of
 // the 9-warp main-path shape an SM instead of 4
+template <int kPhases, int kSub>
 __global__ void __launch_bounds__(32 * kMaxWarps, 3)
 scan_sweep_kernel(const float* __restrict__ scal,
                   const float* __restrict__ fan,
@@ -186,13 +204,16 @@ scan_sweep_kernel(const float* __restrict__ scal,
   const float* sc = scal + (size_t)scan * kScal;
   const float ox = sc[0], oy = sc[1];
 
-  // the scan's rows: its subgroup's table, then its own extras
+  // the scan's rows: its subgroup's table, then its own extras (none
+  // without the sweep phase)
   const int sub = scan / kSub;
   const int b = bid[sub];
   const float* table = b == 0 ? full : tabs + (size_t)(b - 1) * kt_rows * 8;
   const int n_shared = ng[sub] * kGroup;
   const int e0 = has_extras ? est[scan] * kGroup : 0;
-  const int n_rows = n_shared + (has_extras ? ecnt[scan] * kGroup : 0);
+  const int n_rows = (kPhases & kSweep) == 0
+                         ? 0
+                         : n_shared + (has_extras ? ecnt[scan] * kGroup : 0);
   if (n_rows > 0) {
     issue_stage(raw[0], table, 0, min(kStage, n_rows), n_shared, e0);
   }
@@ -238,6 +259,21 @@ scan_sweep_kernel(const float* __restrict__ scal,
   const float s0y = f0y * cos_delta - f0x * sin_delta;
   const float4 sector = make_float4(s0x, s0y, f1x * cos_delta - f1y * sin_delta,
                                     f1y * cos_delta + f1x * sin_delta);
+
+  if constexpr ((kPhases & kSweep) == 0) {
+    // no row stream: keep the sector (and, where nothing stores them, the
+    // directions) that the sweep would have used
+    keep(sector.x);
+    keep(sector.y);
+    keep(sector.z);
+    keep(sector.w);
+    keep(skip_here ? 1.0f : 0.0f);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if constexpr ((kPhases & kOut) != 0) keep(dx[k]);
+      keep(dy[k]);
+    }
+  }
 
   int buf = 0;
   for (int base = 0; base < n_rows; base += kStage) {
@@ -316,7 +352,15 @@ scan_sweep_kernel(const float* __restrict__ scal,
   const float maxr = sc[6];
   float res[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) res[k] = fminf(1.0f / fmaxf(acc[k], 1e-9f), maxr);
+  for (int k = 0; k < 4; ++k) {
+    if constexpr ((kPhases & kOut) != 0) {
+      res[k] = fminf(1.0f / fmaxf(acc[k], 1e-9f), maxr);
+    } else if constexpr ((kPhases & kSweep) != 0) {
+      res[k] = acc[k];   // the raw accumulator
+    } else {
+      res[k] = dx[k];    // the beam's direction, x-component
+    }
+  }
   float* dst = out + (size_t)scan * num_beams + beam0;
   const int n_here = min(4, min(chunk - 4 * lane, num_beams - beam0));
   if (n_here == 4 && (num_beams & 3) == 0) {
@@ -329,11 +373,41 @@ scan_sweep_kernel(const float* __restrict__ scal,
   }
 }
 
+using Kernel = void (*)(const float*, const float*, const float*,
+                        const float*, int, const int*, const int*,
+                        const int*, const int*, int, float*, int, float,
+                        float, int, int, float, float, float, float);
+
+template <int kPhases>
+Kernel kernel_for_sub(int sub) {
+  switch (sub) {
+    case 1: return scan_sweep_kernel<kPhases, 1>;
+    case 2: return scan_sweep_kernel<kPhases, 2>;
+    case 4: return scan_sweep_kernel<kPhases, 4>;
+    case 8: return scan_sweep_kernel<kPhases, 8>;
+    case 16: return scan_sweep_kernel<kPhases, 16>;
+    default: return nullptr;
+  }
+}
+
+// the instantiation of phase mask `phases` (kDirs | kSweep | kOut bits,
+// kDirs set) and subgroup size `sub`; null when there is none
+Kernel kernel_for(int phases, int sub) {
+  switch (phases) {
+    case kDirs: return kernel_for_sub<kDirs>(sub);
+    case kDirs | kSweep: return kernel_for_sub<kDirs | kSweep>(sub);
+    case kDirs | kOut: return kernel_for_sub<kDirs | kOut>(sub);
+    case kDirs | kSweep | kOut: return kernel_for_sub<kDirs | kSweep | kOut>(sub);
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 // Plain C entry, bound with ctypes. Launches on `stream` and returns
 // cudaGetLastError() (0 = launched). `chunk` (a multiple of 4, at most 128)
-// beams a warp, `warps` chunks a block.
+// beams a warp, `warps` chunks a block; `phases` the phase mask (7 in
+// production), `sub` the scans of a subgroup (1, 2, 4, 8 or 16).
 extern "C" int scan_sweep(const float* scal, const float* fan,
                           const float* full, const float* tabs, int kt_rows,
                           const int* bid, const int* ng, const int* est,
@@ -341,15 +415,15 @@ extern "C" int scan_sweep(const float* scal, const float* fan,
                           int n_scans, int num_beams, float inv_td,
                           float bin_to_rad, int chunk, int warps, int skip,
                           float eps, float inv_ratio2, float cos_delta,
-                          float sin_delta, void* stream) {
-  if (chunk <= 0 || chunk > 128 || chunk % 4 || warps <= 0 ||
-      warps > kMaxWarps) {
+                          float sin_delta, int phases, int sub, void* stream) {
+  const Kernel kernel = kernel_for(phases, sub);
+  if (kernel == nullptr || chunk <= 0 || chunk > 128 || chunk % 4 ||
+      warps <= 0 || warps > kMaxWarps || n_scans % sub) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_chunks = (num_beams + chunk - 1) / chunk;
   const dim3 grid(n_scans, (n_chunks + warps - 1) / warps);
-  scan_sweep_kernel<<<grid, 32 * warps, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, 32 * warps, 0, static_cast<cudaStream_t>(stream)>>>(
       scal, fan, full, tabs, kt_rows, bid, ng, est, ecnt, has_extras, out,
       num_beams, inv_td, bin_to_rad, chunk, skip, eps, inv_ratio2, cos_delta,
       sin_delta);
@@ -359,10 +433,14 @@ extern "C" int scan_sweep(const float* scal, const float* fan,
 // Resident blocks an SM holds of the launch scan_sweep makes, and its grid
 // size in blocks (`grid_blocks`); -1 on error.
 extern "C" int scan_sweep_occupancy(int n_scans, int num_beams, int chunk,
-                                    int warps, int* grid_blocks) {
+                                    int warps, int phases, int sub,
+                                    int* grid_blocks) {
+  const Kernel kernel = kernel_for(phases, sub);
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, scan_sweep_kernel, 32 * warps, 0) != cudaSuccess) {
+  if (kernel == nullptr || warps <= 0 || warps > kMaxWarps || chunk <= 0 ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    32 * warps, 0) !=
+          cudaSuccess) {
     return -1;
   }
   const int n_chunks = (num_beams + chunk - 1) / chunk;

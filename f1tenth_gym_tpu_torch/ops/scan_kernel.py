@@ -20,6 +20,19 @@ One call is three steps:
   ``scan_pallas_vmappable`` do the same behind the JAX package's
   signatures.
 
+The kernel takes the JAX kernel's phase mask (``phases``: ``"dirs"``,
+``"dirs,sweep"``, ``"dirs,out"`` or ``"dirs,sweep,out"``, the production
+run) and its launch knobs: ``chunk`` beams a warp, ``warps`` chunks a
+block, the row skip on or off (``sweep``), and ``sub``, the scans of a
+subgroup that share one table choice (``prepare``). A masked variant
+stores what its phases compute, so that it can be held against
+``sweep_plain(w, phases)``: the beams' direction x-components
+(``"dirs"``), the raw accumulator, the max inverse range before the
+epilogue (``"dirs,sweep"``), or ``max_range`` (``"dirs,out"``, the
+epilogue on a zero accumulator). The JAX kernel's other knob, EA (scans
+per Pallas program, ``F1TENTH_PALLAS_EA``), has no counterpart: a launch
+here is one block per (scan, group of beam chunks).
+
 The kernel skips the rows whose arc, seen from the scan origin, misses a
 warp's beam chunk. ``skip_keep`` transcribes its keep test in plain torch,
 ``sweep_kept`` sweeps only the kept pairs, ``pair_counts`` counts the
@@ -36,6 +49,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
+import re
 from typing import Optional
 
 import numpy as np
@@ -47,13 +61,17 @@ from f1tenth_gym_tpu_torch.utils import cuda_build
 
 TWO_PI = 2.0 * np.pi
 GROUP = 8   # segment rows per group (the pack's row format)
-SUB = 8     # scans per table-selection subgroup
+SUB = 8     # scans per table-selection subgroup (the default)
+SUBS = (1, 2, 4, 8, 16)  # the subgroup sizes the kernel is built for
 # the CUDA kernel's row skip (csrc/scan_kernel.cu states the error budget)
 CHUNK = 128         # beams a warp, 4 a lane
 SKIP_DELTA = 1e-3   # rad: a chunk's sector is widened by this on each side
 SKIP_EPS = 0.05     # m: rows whose line passes nearer the origin are kept
 SKIP_RATIO = 1000   # rows longer than this times that distance are kept
 MAX_WARPS = 16      # beam chunks a block (the kernel's kMaxWarps)
+# the phase mask's bits (the kernel's kDirs, kSweep, kOut)
+PHASE_BITS = {"dirs": 1, "sweep": 2, "out": 4}
+FULL_PHASES = "dirs,sweep,out"
 
 CUDA_SRC = os.path.join(cuda_build.CSRC_DIR, "scan_kernel.cu")
 CUDA_SO = os.path.join(cuda_build.BUILD_DIR, "scan_kernel.so")
@@ -95,20 +113,11 @@ def build_seg_table(segments: np.ndarray) -> np.ndarray:
     return out.astype(np.float32)
 
 
-def select_windows(tig, tjg, blockmap, tile_ngroups, tile_ext, nx, ny,
-                   full_ng):
-    """Per-subgroup culled-window choice (pallas_scan.py:410-468).
-
-    tig/tjg: (nsub, SUB) int64 tile indices of each subgroup's scans.
-    Picks the tightest v9 window tier indexed by the subgroup's lower-left
-    tile: 1x1 when all its scans share a tile, 2x2 when they span <= 1
-    tile per axis, 4x4 for spread <= 3, 8x8 for spread <= 7, else the full
-    set (also on the blockmap sentinel -1).
-
-    Returns (bid, ng, est, ecnt): bid (nsub,) 0 = full table else 1 +
-    block; ng (nsub,) shared group count; est/ecnt (nsub, SUB) per-scan
-    extras start and count in group units.
-    """
+def window_tiers(tig, tjg, blockmap, nx, ny):
+    """The selection cascade of ``select_windows``: for the 1x1, 2x2, 4x4
+    and 8x8 tiers in that order, (use, blk), each (nsub,): whether the
+    subgroup takes that tier, and the tier's block at its lower-left tile
+    (-1: none). A subgroup that takes none sweeps the full table."""
     T = blockmap.shape[0] // 4
     ti_lo, ti_hi = tig.min(-1).values, tig.max(-1).values
     tj_lo, tj_hi = tjg.min(-1).values, tjg.max(-1).values
@@ -125,6 +134,26 @@ def select_windows(tig, tjg, blockmap, tile_ngroups, tile_ext, nx, ny,
     use4 = in_grid & (sx <= 3) & (sy <= 3) & (blk4 >= 0) & ~use1 & ~use2
     use8 = (in_grid & (sx <= 7) & (sy <= 7) & (blk8 >= 0)
             & ~use1 & ~use2 & ~use4)
+    return (use1, blk1), (use2, blk2), (use4, blk4), (use8, blk8)
+
+
+def select_windows(tig, tjg, blockmap, tile_ngroups, tile_ext, nx, ny,
+                   full_ng):
+    """Per-subgroup culled-window choice (pallas_scan.py:410-468).
+
+    tig/tjg: (nsub, sub) int64 tile indices of each subgroup's scans.
+    Picks the tightest v9 window tier indexed by the subgroup's lower-left
+    tile: 1x1 when all its scans share a tile, 2x2 when they span <= 1
+    tile per axis, 4x4 for spread <= 3, 8x8 for spread <= 7, else the full
+    set (also on the blockmap sentinel -1).
+
+    Returns (bid, ng, est, ecnt): bid (nsub,) 0 = full table else 1 +
+    block; ng (nsub,) shared group count; est/ecnt (nsub, sub) per-scan
+    extras start and count in group units.
+    """
+    (use1, blk1), (use2, blk2), (use4, blk4), (use8, blk8) = window_tiers(
+        tig, tjg, blockmap, nx, ny)
+    ti_lo, tj_lo = tig.min(-1).values, tjg.min(-1).values
     none = torch.full_like(blk1, -1)
     blk = torch.where(use1, blk1, torch.where(
         use2, blk2, torch.where(use4, blk4, torch.where(use8, blk8, none))))
@@ -147,7 +176,7 @@ def select_windows(tig, tjg, blockmap, tile_ngroups, tile_ext, nx, ny,
 
 @dataclasses.dataclass
 class SweepInputs:
-    """Everything the sweep reads, made by ``prepare``; n_pad % SUB == 0."""
+    """Everything the sweep reads, made by ``prepare``; n_pad % sub == 0."""
 
     scal: torch.Tensor   # (n_pad, 8) f32 [ox, oy, ti0, inc, ca, sa, maxr, 0]
     fan: torch.Tensor    # (2, num_beams) f32 rows cos(n*beta), sin(n*beta)
@@ -160,6 +189,7 @@ class SweepInputs:
     has_extras: bool     # the pack has split blocks
     inv_td: float        # f32(1 / theta_dis)
     bin_to_rad: float    # f32(2 pi / (theta_dis - 1))
+    sub: int = SUB       # scans a subgroup (one table choice)
 
     @property
     def num_beams(self) -> int:
@@ -167,7 +197,7 @@ class SweepInputs:
 
     def swept_rows(self) -> torch.Tensor:
         """(n_pad,) table rows each scan sweeps with this selection."""
-        shared = self.ng.long().repeat_interleave(SUB)
+        shared = self.ng.long().repeat_interleave(self.sub)
         extra = self.ecnt.long() if self.has_extras else 0
         return (shared + extra) * GROUP
 
@@ -185,13 +215,19 @@ def prepare(pose: torch.Tensor, seg_table: torch.Tensor, tables: ScanTables,
             tile_blockmap: Optional[torch.Tensor] = None,
             tile_ext: Optional[torch.Tensor] = None,
             elig_raster: Optional[torch.Tensor] = None,
-            elig_meta: Optional[torch.Tensor] = None) -> SweepInputs:
-    """Host side of _scan_pallas (pallas_scan.py:530-621) for (n, 3) poses."""
+            elig_meta: Optional[torch.Tensor] = None,
+            sub: int = SUB) -> SweepInputs:
+    """Host side of _scan_pallas (pallas_scan.py:530-621) for (n, 3) poses;
+    ``sub`` scans a subgroup (one of SUBS; the JAX kernel's
+    ``F1TENTH_PALLAS_SUB``)."""
+    if sub not in SUBS:
+        raise ValueError(f"subgroup size {sub}: the kernel is built for "
+                         f"{SUBS}")
     f32 = torch.float32
     dev = pose.device
     p = pose.reshape(-1, 3).to(f32)
     n = p.shape[0]
-    n_pad = ((n + SUB - 1) // SUB) * SUB
+    n_pad = ((n + sub - 1) // sub) * sub
     if n_pad > n:
         p = torch.cat([p, p[-1:].expand(n_pad - n, 3)], 0)
 
@@ -216,7 +252,7 @@ def prepare(pose: torch.Tensor, seg_table: torch.Tensor, tables: ScanTables,
          torch.sin(alpha), tables.max_range.to(f32).expand(n_pad), zeros],
         -1).contiguous()
 
-    nsub = n_pad // SUB
+    nsub = n_pad // sub
     Kf = seg_table.shape[0]
     if tile_tables is None:
         tabs = torch.zeros((1, GROUP, 8), dtype=f32, device=dev)
@@ -235,7 +271,7 @@ def prepare(pose: torch.Tensor, seg_table: torch.Tensor, tables: ScanTables,
         ti = torch.floor((p[:, 0] - x0) * inv_ts).long()
         tj = torch.floor((p[:, 1] - y0) * inv_ts).long()
         bid, ng, est, ecnt = select_windows(
-            ti.view(nsub, SUB), tj.view(nsub, SUB), tile_blockmap,
+            ti.view(nsub, sub), tj.view(nsub, sub), tile_blockmap,
             tile_ngroups, tile_ext, nx, ny, Kf // GROUP)
         if elig_raster is not None:
             # erosion-gated pack: the culled tables are only proven for
@@ -247,7 +283,7 @@ def prepare(pose: torch.Tensor, seg_table: torch.Tensor, tables: ScanTables,
             inb = (ex >= 0) & (ex < Wm) & (ey >= 0) & (ey < Hm)
             ok = inb & (elig_raster[torch.clamp(ey, 0, Hm - 1),
                                     torch.clamp(ex, 0, Wm - 1)] > 0)
-            ok_sub = ok.view(nsub, SUB).all(-1)
+            ok_sub = ok.view(nsub, sub).all(-1)
             bid = torch.where(ok_sub, bid, 0)
             ng = torch.where(ok_sub, ng, Kf // GROUP)
             est = torch.where(ok_sub[:, None], est, 0)
@@ -259,7 +295,7 @@ def prepare(pose: torch.Tensor, seg_table: torch.Tensor, tables: ScanTables,
         scal=scal, fan=fan.contiguous(), full=seg_table.to(f32).contiguous(),
         tabs=tabs.contiguous(), bid=bid.to(i32), ng=ng.to(i32),
         est=est.to(i32), ecnt=ecnt.to(i32), has_extras=tile_ext is not None,
-        inv_td=_f32(1.0 / theta_dis), bin_to_rad=bin_to_rad)
+        inv_td=_f32(1.0 / theta_dis), bin_to_rad=bin_to_rad, sub=sub)
 
 
 # --------------------------------------------------------------------------
@@ -304,8 +340,38 @@ def _accumulate(acc, rows, valid, ox, oy, dx, dy):
     return torch.maximum(acc, sc.amax(-1))
 
 
-def sweep_plain(w: SweepInputs) -> torch.Tensor:
-    """The kernel's computation in torch ops: (n_pad, B) ranges.
+def phase_mask(phases: str) -> int:
+    """The kernel's phase bits of a JAX phase mask ("dirs,sweep,out" in
+    production); raises without "dirs" or on an unknown phase."""
+    parts = {p.strip() for p in phases.split(",")}
+    if "dirs" not in parts or not parts <= set(PHASE_BITS):
+        raise ValueError(f"phase mask {phases!r}: need 'dirs', optionally "
+                         "with 'sweep' and 'out'")
+    return sum(PHASE_BITS[p] for p in parts)
+
+
+def _finish(acc: torch.Tensor, w: SweepInputs) -> torch.Tensor:
+    """The epilogue: ranges min(1 / max(acc, 1e-9), max_range)."""
+    return torch.minimum(1.0 / torch.clamp(acc, min=1e-9), w.scal[:, 6:7])
+
+
+def sweep_plain(w: SweepInputs, phases: str = FULL_PHASES) -> torch.Tensor:
+    """The kernel's computation in torch ops: (n_pad, B) ranges, or what
+    the masked kernel stores under ``phases`` (module docstring)."""
+    mask = phase_mask(phases)
+    if mask & PHASE_BITS["sweep"]:
+        acc = sweep_acc(w)
+    elif mask & PHASE_BITS["out"]:
+        acc = torch.zeros((w.scal.shape[0], w.num_beams),
+                          dtype=torch.float32, device=w.scal.device)
+    else:
+        return _beam_dirs(w)[0]
+    return _finish(acc, w) if mask & PHASE_BITS["out"] else acc
+
+
+def sweep_acc(w: SweepInputs) -> torch.Tensor:
+    """The sweep's accumulator, (n_pad, B): per (scan, beam) the max
+    inverse range over the scan's rows, before the epilogue.
 
     Each subgroup's table is gathered from the selected block (or the full
     table), masked to its ``ng`` groups, then each scan's extras range;
@@ -317,7 +383,7 @@ def sweep_plain(w: SweepInputs) -> torch.Tensor:
     dx, dy = _beam_dirs(w)
     ox, oy = w.scal[:, 0:1], w.scal[:, 1:2]
     acc = torch.zeros((n_pad, B), dtype=torch.float32, device=dev)
-    sub_of = torch.arange(n_pad, device=dev) // SUB
+    sub_of = torch.arange(n_pad, device=dev) // w.sub
     bid = w.bid.long()[sub_of]
     blk = torch.clamp(bid - 1, min=0)
     Kf, Kt = w.full.shape[0], w.tabs.shape[1]
@@ -340,7 +406,7 @@ def sweep_plain(w: SweepInputs) -> torch.Tensor:
             off = torch.arange(r0, r0 + chunk, device=dev).expand(n_pad, chunk)
             acc = _accumulate(acc, gather(e0[:, None] + off),
                               off < en[:, None], ox, oy, dx, dy)
-    return torch.minimum(1.0 / torch.clamp(acc, min=1e-9), w.scal[:, 6:7])
+    return acc
 
 
 # --------------------------------------------------------------------------
@@ -354,7 +420,7 @@ def _row_index(w: SweepInputs):
     row g of the full table where bid == 0, else of block bid - 1."""
     n_pad = w.scal.shape[0]
     dev = w.scal.device
-    sub_of = torch.arange(n_pad, device=dev) // SUB
+    sub_of = torch.arange(n_pad, device=dev) // w.sub
     bid = w.bid.long()[sub_of]
     n_sh = (w.ng.long() * GROUP)[sub_of]
     n_ex = (w.ecnt.long() * GROUP if w.has_extras
@@ -396,12 +462,12 @@ def _in_arc(vx, vy, px, py, qx, qy):
     return (_cross(px, py, vx, vy) >= 0) & (_cross(vx, vy, qx, qy) >= 0)
 
 
-def skip_keep(w: SweepInputs, rows: torch.Tensor,
-              valid: torch.Tensor) -> torch.Tensor:
+def skip_keep(w: SweepInputs, rows: torch.Tensor, valid: torch.Tensor,
+              chunk: int = CHUNK) -> torch.Tensor:
     """The kernel's keep test (csrc/scan_kernel.cu), in its f32 operation
     order: (n_pad, n_chunks, R) bool, True where the warp of beam chunk c
-    of a scan runs the hit test on row r (``rows``/``valid`` from
-    ``scan_rows``)."""
+    (``chunk`` beams a warp) of a scan runs the hit test on row r
+    (``rows``/``valid`` from ``scan_rows``)."""
     ox, oy = w.scal[:, 0:1], w.scal[:, 1:2]
     nx, ny, c, tx, ty, wn = (rows[..., i] for i in range(6))
     num = c - ox * nx - oy * ny
@@ -424,8 +490,8 @@ def skip_keep(w: SweepInputs, rows: torch.Tensor,
     # each chunk's sector: first to last beam, widened by SKIP_DELTA
     dx, dy = _beam_dirs(w)
     B = w.num_beams
-    first = torch.arange(0, B, CHUNK, device=dx.device)
-    last = torch.clamp(first + CHUNK, max=B) - 1
+    first = torch.arange(0, B, chunk, device=dx.device)
+    last = torch.clamp(first + chunk, max=B) - 1
     f0x, f0y, f1x, f1y = dx[:, first], dy[:, first], dx[:, last], dy[:, last]
     cd, sd = _f32(np.cos(SKIP_DELTA)), _f32(np.sin(SKIP_DELTA))
     s0x = (f0x * cd + f0y * sd)[..., None]
@@ -442,35 +508,36 @@ def skip_keep(w: SweepInputs, rows: torch.Tensor,
     return torch.where(skip[..., None], keep, True) & valid[:, None, :]
 
 
-def sweep_kept(w: SweepInputs) -> torch.Tensor:
+def sweep_kept(w: SweepInputs, chunk: int = CHUNK) -> torch.Tensor:
     """``sweep_plain`` restricted to the pairs the kernel's skip keeps:
     (n_pad, B) ranges, equal to ``sweep_plain`` wherever the skip is
     sound."""
     rows, valid = scan_rows(w)
-    keep = skip_keep(w, rows, valid)
+    keep = skip_keep(w, rows, valid, chunk)
     dx, dy = _beam_dirs(w)
     ox, oy = w.scal[:, 0:1], w.scal[:, 1:2]
     acc = torch.zeros_like(dx)
-    for ci, b0 in enumerate(range(0, w.num_beams, CHUNK)):
-        sl = slice(b0, b0 + CHUNK)
+    for ci, b0 in enumerate(range(0, w.num_beams, chunk)):
+        sl = slice(b0, b0 + chunk)
         acc[:, sl] = _accumulate(acc[:, sl], rows, keep[:, ci], ox, oy,
                                  dx[:, sl], dy[:, sl])
-    return torch.minimum(1.0 / torch.clamp(acc, min=1e-9), w.scal[:, 6:7])
+    return _finish(acc, w)
 
 
-def pair_counts(w: SweepInputs) -> dict:
+def pair_counts(w: SweepInputs, chunk: int = CHUNK) -> dict:
     """(scan, beam, row) pair counts of one sweep: ``swept``, every pair
     of the scans' row lists (what ``sweep_plain`` tests); ``kept``, the
     pairs the kernel's skip tests; ``hit``, the pairs whose hit test passes
     with s > 0 (the beam inside the row's arc: the least work);
-    ``missed``, hit pairs the skip drops, 0 when it is sound."""
+    ``missed``, hit pairs the skip drops, 0 when it is sound; ``chunk``
+    beams a warp."""
     rows, valid = scan_rows(w)
-    keep = skip_keep(w, rows, valid)
+    keep = skip_keep(w, rows, valid, chunk)
     dx, dy = _beam_dirs(w)
     ox, oy = w.scal[:, 0:1], w.scal[:, 1:2]
     n_pad, R = valid.shape
     B = w.num_beams
-    chunk_of = torch.arange(B, device=dx.device) // CHUNK
+    chunk_of = torch.arange(B, device=dx.device) // chunk
     width = torch.bincount(chunk_of).to(torch.float64)
     out = dict(swept=int(valid.sum()) * B,
                kept=int((keep.to(torch.float64) * width[:, None]).sum()),
@@ -499,6 +566,25 @@ def build_cuda() -> str:
     return cuda_build.build(CUDA_SRC, CUDA_SO)
 
 
+def resources(report: str) -> dict:
+    """{(phase bits, sub): {registers, smem_bytes, spill_bytes}} of each
+    kernel instantiation in ``build_cuda``'s report."""
+    out, key = {}, None
+    for line in report.splitlines():
+        m = re.search(r"scan_sweep_kernelILi(\d+)ELi(\d+)E", line)
+        if "Compiling entry function" in line:
+            key = (int(m.group(1)), int(m.group(2))) if m else None
+        elif key is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out.setdefault(key, {})["spill_bytes"] = int(st) + int(ld)
+        elif key is not None and "registers" in line:
+            out.setdefault(key, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[key]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def _load_cuda():
     global _LIB
     if _LIB is None:
@@ -506,9 +592,9 @@ def _load_cuda():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.scan_sweep.argtypes = [vp, vp, vp, vp, ci, vp, vp, vp, vp, ci,
                                    vp, ci, ci, cf, cf, ci, ci, ci, cf, cf,
-                                   cf, cf, vp]
+                                   cf, cf, ci, ci, vp]
         lib.scan_sweep.restype = ci
-        lib.scan_sweep_occupancy.argtypes = [ci, ci, ci, ci,
+        lib.scan_sweep_occupancy.argtypes = [ci, ci, ci, ci, ci, ci,
                                              ctypes.POINTER(ci)]
         lib.scan_sweep_occupancy.restype = ci
         _LIB = lib
@@ -531,25 +617,46 @@ def _check_cuda_inputs(w: SweepInputs):
         if getattr(w, name).data_ptr() % 16:
             raise ValueError(f"scan kernel input {name} is not 16-byte aligned")
     n_pad = w.scal.shape[0]
-    if (n_pad % SUB or w.scal.shape[1] != 8 or w.bid.shape[0] != n_pad // SUB
-            or w.est.shape[0] != n_pad or w.full.shape[1] != 8
-            or w.tabs.shape[2] != 8):
+    if (w.sub not in SUBS or n_pad % w.sub or w.scal.shape[1] != 8
+            or w.bid.shape[0] != n_pad // w.sub or w.est.shape[0] != n_pad
+            or w.full.shape[1] != 8 or w.tabs.shape[2] != 8):
         raise ValueError("scan kernel inputs have inconsistent shapes")
 
 
-def warps_per_block(num_beams: int) -> int:
+def warps_per_block(num_beams: int, chunk: int = CHUNK) -> int:
     """Beam chunks (warps) a block: all of a scan's chunks when they fit
     MAX_WARPS, else an even split."""
-    n = -(-num_beams // CHUNK)
+    n = -(-num_beams // chunk)
     return -(-n // -(-n // MAX_WARPS))
 
 
-def _sweep_cuda(w: SweepInputs, skip: bool = True) -> torch.Tensor:
-    """The kernel on ``w``; ``skip=False`` turns its row skip off (every
-    pair tested, the same result), to measure what the skip saves."""
+def launch_shape(num_beams: int, chunk: Optional[int] = None,
+                 warps: Optional[int] = None):
+    """(chunk, warps, blocks a scan) of a launch, the defaults filled in:
+    CHUNK beams a warp and ``warps_per_block``; raises on knobs the kernel
+    does not take (chunk a multiple of 4 up to 128, 1 to MAX_WARPS
+    warps)."""
+    chunk = CHUNK if chunk is None else int(chunk)
+    if chunk <= 0 or chunk > 128 or chunk % 4:
+        raise ValueError(f"chunk {chunk}: need a multiple of 4, at most 128")
+    warps = warps_per_block(num_beams, chunk) if warps is None else int(warps)
+    if not 0 < warps <= MAX_WARPS:
+        raise ValueError(f"warps {warps}: need 1 to {MAX_WARPS}")
+    n_chunks = -(-num_beams // chunk)
+    return chunk, warps, -(-n_chunks // warps)
+
+
+def _sweep_cuda(w: SweepInputs, skip: bool = True,
+                chunk: Optional[int] = None, warps: Optional[int] = None,
+                phases: str = FULL_PHASES) -> torch.Tensor:
+    """The kernel on ``w`` (knobs as ``sweep``); ``skip=False`` turns its
+    row skip off (every pair tested, the same result), to measure what the
+    skip saves."""
+    mask = phase_mask(phases)
     _check_cuda_inputs(w)
     lib = _load_cuda()
     n_pad, B = w.scal.shape[0], w.num_beams
+    chunk, warps, _ = launch_shape(B, chunk, warps)
     out = torch.empty((n_pad, B), dtype=torch.float32, device=w.scal.device)
     stream = torch.cuda.current_stream(w.scal.device).cuda_stream
     err = lib.scan_sweep(
@@ -557,38 +664,50 @@ def _sweep_cuda(w: SweepInputs, skip: bool = True) -> torch.Tensor:
         w.tabs.data_ptr(), w.tabs.shape[1], w.bid.data_ptr(),
         w.ng.data_ptr(), w.est.data_ptr(), w.ecnt.data_ptr(),
         int(w.has_extras), out.data_ptr(), n_pad, B, w.inv_td,
-        w.bin_to_rad, CHUNK, warps_per_block(B), int(skip), _f32(SKIP_EPS),
+        w.bin_to_rad, chunk, warps, int(skip), _f32(SKIP_EPS),
         _f32(SKIP_RATIO ** -2), _f32(np.cos(SKIP_DELTA)),
-        _f32(np.sin(SKIP_DELTA)), stream)
+        _f32(np.sin(SKIP_DELTA)), mask, w.sub, stream)
     if err != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
     sweep.launches += 1
     return out
 
 
-def occupancy(n_scans: int, num_beams: int) -> dict:
+def occupancy(n_scans: int, num_beams: int, chunk: Optional[int] = None,
+              warps: Optional[int] = None, phases: str = FULL_PHASES,
+              sub: int = SUB) -> dict:
     """The kernel's launch at this shape on the current card: resident
     blocks an SM, grid blocks, and waves (grid over resident blocks)."""
+    chunk, warps, _ = launch_shape(num_beams, chunk, warps)
     grid = ctypes.c_int(0)
     per_sm = _load_cuda().scan_sweep_occupancy(
-        n_scans, num_beams, CHUNK, warps_per_block(num_beams),
+        n_scans, num_beams, chunk, warps, phase_mask(phases), sub,
         ctypes.byref(grid))
     if per_sm <= 0:
         raise RuntimeError("scan kernel occupancy query failed")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dict(threads_per_block=32 * warps_per_block(num_beams),
-                blocks_per_sm=per_sm, grid_blocks=grid.value,
-                waves=grid.value / (per_sm * sms))
+    return dict(threads_per_block=32 * warps, blocks_per_sm=per_sm,
+                grid_blocks=grid.value, waves=grid.value / (per_sm * sms))
 
 
-def sweep(w: SweepInputs) -> torch.Tensor:
+def sweep(w: SweepInputs, chunk: Optional[int] = None,
+          warps: Optional[int] = None, skip: bool = True,
+          phases: str = FULL_PHASES) -> torch.Tensor:
     """The sweep on ``w``'s device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. ``sweep.launches`` counts kernel
-    launches."""
+    launches.
+
+    ``chunk`` beams a warp (default CHUNK), ``warps`` chunks a block
+    (default ``warps_per_block``) and ``skip``, the row skip, change no
+    output bit; ``phases`` masks the kernel's phases (module docstring).
+    The plain version takes the same knobs and checks them."""
     if w.scal.device.type == "cuda":
-        return _sweep_cuda(w)
+        return _sweep_cuda(w, skip, chunk, warps, phases)
     if w.scal.device.type == "cpu":
-        return sweep_plain(w)
+        launch_shape(w.num_beams, chunk, warps)
+        # the full mask calls sweep_plain(w), as code that wraps it expects
+        return (sweep_plain(w) if phases == FULL_PHASES
+                else sweep_plain(w, phases))
     raise ValueError(f"no scan kernel for device {w.scal.device}")
 
 
@@ -601,8 +720,8 @@ def elig_meta(m: MapData) -> torch.Tensor:
 
 
 def prepare_map(pose: torch.Tensor, m: MapData, tables: ScanTables,
-                num_beams: int, theta_dis: int,
-                culled: bool = True) -> SweepInputs:
+                num_beams: int, theta_dis: int, culled: bool = True,
+                sub: int = SUB) -> SweepInputs:
     """``prepare`` with the tables of ``m`` (its culled pack when
     ``culled`` and present, else the full table only)."""
     if m.seg_table is None:
@@ -615,15 +734,18 @@ def prepare_map(pose: torch.Tensor, m: MapData, tables: ScanTables,
                   tile_blockmap=m.tile_blockmap, tile_ext=m.tile_ext)
         if m.cull_eligible is not None:
             kw.update(elig_raster=m.cull_eligible, elig_meta=elig_meta(m))
-    return prepare(pose, m.seg_table, tables, num_beams, theta_dis, **kw)
+    return prepare(pose, m.seg_table, tables, num_beams, theta_dis, sub=sub,
+                   **kw)
 
 
 def scan(pose: torch.Tensor, m: MapData, tables: ScanTables, num_beams: int,
-         theta_dis: int, culled: bool = True, device=None) -> torch.Tensor:
+         theta_dis: int, culled: bool = True, device=None,
+         sub: int = SUB) -> torch.Tensor:
     """Batched LiDAR scan: pose (..., 3) -> ranges (..., num_beams).
 
     ``device`` (default: the card) must be the map's device; the poses are
-    moved there. ``culled=False`` sweeps the full table for every scan.
+    moved there. ``culled=False`` sweeps the full table for every scan;
+    ``sub`` scans share a table choice.
     """
     dev = resolve_device(device)
     if m.device != dev:
@@ -631,7 +753,8 @@ def scan(pose: torch.Tensor, m: MapData, tables: ScanTables, num_beams: int,
     batch_shape = pose.shape[:-1]
     flat = pose.to(dev).reshape(-1, 3)
     n = flat.shape[0]
-    out = sweep(prepare_map(flat, m, tables, num_beams, theta_dis, culled))
+    out = sweep(prepare_map(flat, m, tables, num_beams, theta_dis, culled,
+                            sub))
     return out[:n].reshape(*batch_shape, num_beams).to(pose.dtype)
 
 
@@ -644,16 +767,19 @@ def scan_pallas(pose: torch.Tensor, seg_table: torch.Tensor,
                 tile_blockmap: Optional[torch.Tensor] = None,
                 tile_ext: Optional[torch.Tensor] = None,
                 elig_raster: Optional[torch.Tensor] = None,
-                elig_meta: Optional[torch.Tensor] = None) -> torch.Tensor:
+                elig_meta: Optional[torch.Tensor] = None,
+                sub: int = SUB) -> torch.Tensor:
     """The JAX package's ``scan_pallas`` (pallas_scan.py:471) on
     ``prepare`` and ``sweep``: pose (..., 3) -> ranges (..., num_beams) on
     the poses' device. ``interpret=True`` runs the plain version
     ``sweep_plain`` (on any device), as Pallas' interpret mode runs the
-    kernel's body; ``phases``, the JAX kernel's debug mask, takes only its
-    default. An erosion-gated pack (``tile_meta[5] >= 8``) without its
-    eligibility raster raises, as in the JAX package."""
-    if phases != "dirs,sweep,out":
-        raise ValueError("the port's scan kernel runs every phase")
+    kernel's body. ``phases`` is the JAX kernel's debug mask: a masked
+    call returns what the masked kernel stores (module docstring) in
+    place of the ranges. ``sub`` scans share a table choice (the JAX
+    kernel's ``F1TENTH_PALLAS_SUB``). An erosion-gated pack
+    (``tile_meta[5] >= 8``) without its eligibility raster raises, as in
+    the JAX package."""
+    phase_mask(phases)
     meta_host = None
     if tile_meta is not None:
         meta_host = tuple(float(v) for v in tile_meta.cpu())
@@ -668,8 +794,8 @@ def scan_pallas(pose: torch.Tensor, seg_table: torch.Tensor,
                 tile_tables=tile_tables, tile_ngroups=tile_ngroups,
                 tile_meta=tile_meta, tile_meta_host=meta_host,
                 tile_blockmap=tile_blockmap, tile_ext=tile_ext,
-                elig_raster=elig_raster, elig_meta=elig_meta)
-    out = sweep_plain(w) if interpret else sweep(w)
+                elig_raster=elig_raster, elig_meta=elig_meta, sub=sub)
+    out = sweep_plain(w, phases) if interpret else sweep(w, phases=phases)
     return out[:flat.shape[0]].reshape(*batch_shape, num_beams).to(pose.dtype)
 
 

@@ -1,0 +1,108 @@
+"""Device-time breakdown of a workload step under ``torch.profiler``.
+
+Port of ``tools/step_trace.py``. Runs TRACE_STEPS steps of the chosen
+workload under the profiler (CPU and CUDA activity on the card) and prints
+the top 15 names by device ms a step, their total, the busy share (device
+time over the profiled wall time) and K1's launches a step, found by its
+kernel name (``scan_sweep_kernel``: the ctypes launch has no profiler
+range of its own).
+
+    python -m f1tenth_gym_tpu_torch.tools.step_trace single  # bench racing step
+    python -m f1tenth_gym_tpu_torch.tools.step_trace multi   # 16-track domain-rand step
+
+``single``: the main path's auto-reset step, TRACE_ENVS (4096) envs x 2
+agents x 1080 beams on example_map culled at 1.25 m, the poses in
+tile-snake order, the JAX probe's actions (steer 0, 2 m/s). ``multi``: the
+world of ``examples/domain_randomization.py`` (``--tracks`` 16 of seed
+``--seed`` 0, 2.5 m tiles) with its sampler's poses after the arc sort and
+the same actions; its culling pack is read from the pack cache
+(``F1TENTH_TORCH_CACHE``) when a run has built it. Knobs: TRACE_ENVS,
+TRACE_STEPS (8); ``--beams`` (1080) and ``--device`` (default: the card).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+from f1tenth_gym_tpu_torch.config import resolve_device
+from f1tenth_gym_tpu_torch.tools import common
+
+
+def build_single(envs: int, num_beams: int, device=None):
+    """(step, states, map) of the bench racing step."""
+    m, tables, poses = common.bench_workload(1.25, envs, num_beams, device)
+    states, step, _ = common.racing_step(m, tables, poses)
+    return step, states, m
+
+
+def build_multi(envs: int, num_beams: int, tracks: int = 16, seed: int = 0,
+                device=None):
+    """(step, states, map) of the domain-randomization world's step."""
+    from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
+
+    world = dr.make_world(tracks, envs, 2, num_beams, seed, device)
+    actions = torch.zeros((envs, 2, 2), device=world.map_data.device)
+    actions[..., 1] = 2.0
+
+    def step(s):
+        return world.step(s, actions)[0]
+
+    return step, world.sort(world.states), world.map_data
+
+
+def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
+          num_beams: int = 1080, tracks: int = 16, seed: int = 0,
+          device=None) -> dict:
+    """Profile ``steps`` steps of workload ``kind``; returns
+    ``common.device_time_by_name``'s dict with ``k1`` (K1's ms and
+    launches a step, from the profile) and ``k1_wrapper_launches`` (the
+    wrapper's count over the profiled steps)."""
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+
+    dev = resolve_device(device)
+    if kind == "single":
+        step, s, _ = build_single(envs, num_beams, dev)
+    elif kind == "multi":
+        step, s, _ = build_multi(envs, num_beams, tracks, seed, dev)
+    else:
+        raise ValueError(f"unknown workload {kind!r}: 'single' or 'multi'")
+    s = step(s)   # warm-up
+    common.sync(dev)
+    box = [s]
+
+    def one():
+        box[0] = step(box[0])
+
+    before = sk.sweep.launches
+    prof = common.profile(one, steps, dev)
+    t = common.device_time_by_name(prof, steps)
+    return dict(kind=kind, envs=envs, agents=2, beams=num_beams, steps=steps,
+                device=common.device_name(dev), **t,
+                k1=common.named(t["by_name"], common.K1_NAME),
+                k1_wrapper_launches=sk.sweep.launches - before)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("kind", nargs="?", default="single",
+                    choices=("single", "multi"))
+    ap.add_argument("--beams", type=int, default=1080)
+    ap.add_argument("--tracks", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    common.device_arg(ap)
+    args = ap.parse_args(argv)
+    r = trace(args.kind, int(os.environ.get("TRACE_ENVS", 4096)),
+              int(os.environ.get("TRACE_STEPS", 8)), args.beams, args.tracks,
+              args.seed, args.device)
+    common.print_top(f"{args.kind}: {r['steps']} steps on {r['device']}", r)
+    print(json.dumps({k: v for k, v in r.items() if k != "by_name"}),
+          flush=True)
+    return r
+
+
+if __name__ == "__main__":
+    main()

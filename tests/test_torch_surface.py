@@ -4,11 +4,15 @@ Code written against ``f1tenth_gym_tpu`` must keep importing once the
 package name is swapped: every name of the JAX ``__all__`` lists resolves
 in the port, ``make_env_fns`` drives the ring as the JAX test does,
 ``scan_pallas`` keeps its JAX signature, and ``load_pytree`` keeps its
-keywords without ever unpickling.
+keywords without ever unpickling. Every JAX probe in ``tools/`` has a
+module of the same name in ``f1tenth_gym_tpu_torch/tools/``.
 """
 
 import importlib
 import inspect
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -199,3 +203,27 @@ def test_load_pytree_keywords(tmp_path):
                                       "b": {"c": np.int32(0)}}, device=False)
     np.testing.assert_array_equal(got["a"].numpy(), tree["a"])
     assert int(got["b"]["c"]) == 7
+
+
+def test_every_jax_probe_has_a_port_module():
+    """tools/<name>.py of the JAX package -> f1tenth_gym_tpu_torch.tools.
+    <name>, with a main(argv=None); importing them all (JAX blocked) edits
+    neither sys.path nor the environment."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    names = sorted(n[:-3] for n in os.listdir(os.path.join(root, "tools"))
+                   if n.endswith(".py"))
+    assert len(names) == 8
+    code = (
+        "import importlib, inspect, json, os, sys\n"
+        "sys.modules['jax'] = None\n"
+        "env, path = dict(os.environ), list(sys.path)\n"
+        f"names = {names!r}\n"
+        "mods = [importlib.import_module('f1tenth_gym_tpu_torch.tools.' + n)"
+        " for n in names]\n"
+        "assert dict(os.environ) == env and sys.path == path\n"
+        "print(json.dumps([list(inspect.signature(m.main).parameters)"
+        " for m in mods]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == str([["argv"]] * 8).replace("'", '"')
