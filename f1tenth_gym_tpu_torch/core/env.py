@@ -24,6 +24,7 @@ from f1tenth_gym_tpu_torch.state import (
     SimState,
     VehicleParams,
 )
+from f1tenth_gym_tpu_torch.utils.profiling import annotate
 
 
 def init_state(poses: torch.Tensor, cfg: SimConfig) -> SimState:
@@ -96,17 +97,19 @@ def env_step(state: SimState, actions: torch.Tensor, params: VehicleParams,
              generator: Optional[torch.Generator] = None,
              ) -> Tuple[SimState, Dict, torch.Tensor, torch.Tensor, Dict]:
     """One step of E envs -> (state', obs, reward (E,), done (E,), info)."""
-    timestep = torch.as_tensor(timestep, dtype=state.current_time.dtype,
-                               device=state.current_time.device)
-    state, obs = sim_step(state, actions, params, map_data, tables, cfg,
-                          timestep, generator)
-    state = state.replace(current_time=state.current_time + timestep)
-    state = _update_laps(state, cfg)
-    obs["lap_times"] = state.lap_times
-    obs["lap_counts"] = state.lap_counts
-    finished = state.toggle_list >= 4
-    done = (state.collisions[:, cfg.ego_idx] > 0.0) | finished.all(-1)
-    reward = timestep.expand(state.num_envs)
+    with annotate("env.step"):
+        timestep = torch.as_tensor(timestep, dtype=state.current_time.dtype,
+                                   device=state.current_time.device)
+        state, obs = sim_step(state, actions, params, map_data, tables, cfg,
+                              timestep, generator)
+        state = state.replace(current_time=state.current_time + timestep)
+        with annotate("env.laps"):
+            state = _update_laps(state, cfg)
+        obs["lap_times"] = state.lap_times
+        obs["lap_counts"] = state.lap_counts
+        finished = state.toggle_list >= 4
+        done = (state.collisions[:, cfg.ego_idx] > 0.0) | finished.all(-1)
+        reward = timestep.expand(state.num_envs)
     return state, obs, reward, done, {"checkpoint_done": finished}
 
 

@@ -44,6 +44,7 @@ from f1tenth_gym_tpu_torch.state import (
     SimState,
     VehicleParams,
 )
+from f1tenth_gym_tpu_torch.utils.profiling import annotate
 
 TWO_PI = 2.0 * np.pi
 
@@ -93,69 +94,81 @@ def sim_step(state: SimState, actions: torch.Tensor, params: VehicleParams,
 
     ``generator`` draws the scan noise (needed when ``cfg.scan_noise``).
     """
-    x_new, steer_buf = physics_step(state.x, state.steer_buf, actions,
-                                    params, timestep, cfg)
+    with annotate("sim.physics"):
+        x_new, steer_buf = physics_step(state.x, state.steer_buf, actions,
+                                        params, timestep, cfg)
 
     yaw = x_new[..., IX_YAW]
-    scan_pose = torch.stack([
-        x_new[..., IX_X] + tables.lidar_dist * torch.cos(yaw),
-        x_new[..., IX_Y] + tables.lidar_dist * torch.sin(yaw),
-        yaw,
-    ], -1)  # (E, A, 3)
-    engine = cfg.resolved_scan_engine(map_data.device,
-                                      map_data.seg_table is not None)
-    if engine == "kernel":
-        scans = scan_kernel.scan(scan_pose, map_data, tables, cfg.num_beams,
-                                 cfg.theta_dis, device=map_data.device)
-    elif engine == "segments":
-        if map_data.segments is None:
-            raise ValueError(
-                "scan_engine='segments' needs MapData.segments: load the map "
-                "with extract_segments=True")
-        scans = seg_ops.get_scan_segments(scan_pose, map_data.segments,
-                                          tables, cfg.num_beams, cfg.theta_dis)
-    elif engine == "march":
-        scans = lidar_ops.get_scan(scan_pose, map_data, tables, cfg.num_beams,
-                                   cfg.theta_dis, max_iters=cfg.max_march_iters)
-    else:
-        raise ValueError(f"unknown scan engine '{engine}'")
+    with annotate("sim.scan"):
+        scan_pose = torch.stack([
+            x_new[..., IX_X] + tables.lidar_dist * torch.cos(yaw),
+            x_new[..., IX_Y] + tables.lidar_dist * torch.sin(yaw),
+            yaw,
+        ], -1)  # (E, A, 3)
+        engine = cfg.resolved_scan_engine(map_data.device,
+                                          map_data.seg_table is not None)
+        if engine == "kernel":
+            scans = scan_kernel.scan(scan_pose, map_data, tables,
+                                     cfg.num_beams, cfg.theta_dis,
+                                     device=map_data.device)
+        elif engine == "segments":
+            if map_data.segments is None:
+                raise ValueError(
+                    "scan_engine='segments' needs MapData.segments: load the "
+                    "map with extract_segments=True")
+            scans = seg_ops.get_scan_segments(scan_pose, map_data.segments,
+                                              tables, cfg.num_beams,
+                                              cfg.theta_dis)
+        elif engine == "march":
+            scans = lidar_ops.get_scan(scan_pose, map_data, tables,
+                                       cfg.num_beams, cfg.theta_dis,
+                                       max_iters=cfg.max_march_iters)
+        else:
+            raise ValueError(f"unknown scan engine '{engine}'")
 
     if cfg.scan_noise:
         if generator is None:
             raise ValueError("scan_noise=True needs a torch.Generator")
-        if cfg.shared_agent_noise:
-            # reference quirk: all agents of an env add the same vector
-            noise = torch.randn(scans.shape[:-2] + (1, cfg.num_beams),
-                                generator=generator, dtype=scans.dtype,
-                                device=scans.device)
-            scans = scans + tables.scan_std * noise
-        else:
-            scans = lidar_ops.add_scan_noise(scans, tables.scan_std, generator)
+        with annotate("sim.noise"):
+            if cfg.shared_agent_noise:
+                # reference quirk: all agents of an env add the same vector
+                noise = torch.randn(scans.shape[:-2] + (1, cfg.num_beams),
+                                    generator=generator, dtype=scans.dtype,
+                                    device=scans.device)
+                scans = scans + tables.scan_std * noise
+            else:
+                scans = lidar_ops.add_scan_noise(scans, tables.scan_std,
+                                                 generator)
 
     # agent-agent collisions at the new, pre-zeroing poses
-    poses_pre = torch.stack([x_new[..., IX_X], x_new[..., IX_Y], yaw], -1)
-    vertices = col_ops.get_vertices(poses_pre, params.length, params.width)
-    collisions, collision_idx = col_ops.collision_multiple(vertices)
+    with annotate("sim.collision"):
+        poses_pre = torch.stack([x_new[..., IX_X], x_new[..., IX_Y], yaw], -1)
+        vertices = col_ops.get_vertices(poses_pre, params.length,
+                                        params.width)
+        collisions, collision_idx = col_ops.collision_multiple(vertices)
 
     # iTTC on the pre-raycast scan zeroes state[3:], yaw included
-    ttc_hit = lidar_ops.check_ttc(scans, x_new[..., IX_VEL], tables)
-    zero_mask = ttc_hit[..., None] & (torch.arange(7, device=x_new.device) >= 3)
-    x_new = torch.where(zero_mask, torch.zeros_like(x_new), x_new)
-    collisions = torch.maximum(collisions, ttc_hit.to(collisions.dtype))
+    with annotate("sim.ittc"):
+        ttc_hit = lidar_ops.check_ttc(scans, x_new[..., IX_VEL], tables)
+        zero_mask = ttc_hit[..., None] & (
+            torch.arange(7, device=x_new.device) >= 3)
+        x_new = torch.where(zero_mask, torch.zeros_like(x_new), x_new)
+        collisions = torch.maximum(collisions, ttc_hit.to(collisions.dtype))
 
     # opponents ray-cast into each scan: scanning pose after zeroing,
     # opponent boxes from before it (base_classes.py:574,579-585)
     A = cfg.num_agents
     if A > 1:
-        poses_post = torch.stack(
-            [x_new[..., IX_X], x_new[..., IX_Y], x_new[..., IX_YAW]], -1)
-        # row i: the agents other than i, ascending (made on the card, so
-        # that indexing copies nothing there)
-        k = torch.arange(A - 1, device=x_new.device)
-        opp_idx = k + (k >= torch.arange(A, device=x_new.device)[:, None])
-        opp_vertices = vertices[..., opp_idx, :, :]  # (E, A, A-1, 4, 2)
-        scans = col_ops.ray_cast_opponents(poses_post, scans, opp_vertices,
-                                           tables)
+        with annotate("sim.opp_clip", extent=True):
+            poses_post = torch.stack(
+                [x_new[..., IX_X], x_new[..., IX_Y], x_new[..., IX_YAW]], -1)
+            # row i: the agents other than i, ascending (made on the card,
+            # so that indexing copies nothing there)
+            k = torch.arange(A - 1, device=x_new.device)
+            opp_idx = k + (k >= torch.arange(A, device=x_new.device)[:, None])
+            opp_vertices = vertices[..., opp_idx, :, :]  # (E, A, A-1, 4, 2)
+            scans = col_ops.ray_cast_opponents(poses_post, scans,
+                                               opp_vertices, tables)
 
     new_state = state.replace(
         x=x_new,

@@ -58,6 +58,7 @@ import torch
 from f1tenth_gym_tpu_torch.config import resolve_device
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables
 from f1tenth_gym_tpu_torch.utils import cuda_build
+from f1tenth_gym_tpu_torch.utils.profiling import annotate
 
 TWO_PI = 2.0 * np.pi
 GROUP = 8   # segment rows per group (the pack's row format)
@@ -270,9 +271,10 @@ def prepare(pose: torch.Tensor, seg_table: torch.Tensor, tables: ScanTables,
         nx, ny = int(tile_meta_host[3]), int(tile_meta_host[4])
         ti = torch.floor((p[:, 0] - x0) * inv_ts).long()
         tj = torch.floor((p[:, 1] - y0) * inv_ts).long()
-        bid, ng, est, ecnt = select_windows(
-            ti.view(nsub, sub), tj.view(nsub, sub), tile_blockmap,
-            tile_ngroups, tile_ext, nx, ny, Kf // GROUP)
+        with annotate("scan.select_windows"):
+            bid, ng, est, ecnt = select_windows(
+                ti.view(nsub, sub), tj.view(nsub, sub), tile_blockmap,
+                tile_ngroups, tile_ext, nx, ny, Kf // GROUP)
         if elig_raster is not None:
             # erosion-gated pack: the culled tables are only proven for
             # scan origins on eligible cells; a subgroup with any other
@@ -753,8 +755,10 @@ def scan(pose: torch.Tensor, m: MapData, tables: ScanTables, num_beams: int,
     batch_shape = pose.shape[:-1]
     flat = pose.to(dev).reshape(-1, 3)
     n = flat.shape[0]
-    out = sweep(prepare_map(flat, m, tables, num_beams, theta_dis, culled,
-                            sub))
+    with annotate("scan.prepare"):
+        w = prepare_map(flat, m, tables, num_beams, theta_dis, culled, sub)
+    with annotate("scan.k1"):
+        out = sweep(w)
     return out[:n].reshape(*batch_shape, num_beams).to(pose.dtype)
 
 

@@ -17,6 +17,7 @@ import torch
 from f1tenth_gym_tpu_torch.config import DEFAULT_SEED, SimConfig, resolve_device
 from f1tenth_gym_tpu_torch.core.env import env_reset, env_step, init_state
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables, SimState, VehicleParams
+from f1tenth_gym_tpu_torch.utils.profiling import annotate
 
 
 def make_generator(device, seed: int = DEFAULT_SEED) -> torch.Generator:
@@ -207,20 +208,21 @@ def sort_envs_for_locality(states: SimState, tile_size: float = None,
     midpoint in snake order; without, on a 6 m / 1.5 m block key. Not to
     be combined with positional ``reset_poses`` auto-reset.
     """
-    if tile_size is None:
-        x = states.x[:, 0, 0]
-        y = states.x[:, 0, 1]
-        by = torch.floor(y / 6.0)
-        bx = torch.floor(x / 6.0)
-        fy = torch.remainder(torch.floor(y / 1.5), 4.0)
-        fx = torch.remainder(torch.floor(x / 1.5), 4.0)
-        key = ((by * 4096.0 + bx) * 4.0 + fy) * 4.0 + fx
-    else:
-        mx = states.x[:, :, 0].mean(1)
-        my = states.x[:, :, 1].mean(1)
-        key = tile_snake_key(mx, my, tile_size, origin)
-    order = torch.argsort(key, stable=True)
-    return states.map(lambda leaf: leaf[order])
+    with annotate("vector.sort"):
+        if tile_size is None:
+            x = states.x[:, 0, 0]
+            y = states.x[:, 0, 1]
+            by = torch.floor(y / 6.0)
+            bx = torch.floor(x / 6.0)
+            fy = torch.remainder(torch.floor(y / 1.5), 4.0)
+            fx = torch.remainder(torch.floor(x / 1.5), 4.0)
+            key = ((by * 4096.0 + bx) * 4.0 + fy) * 4.0 + fx
+        else:
+            mx = states.x[:, :, 0].mean(1)
+            my = states.x[:, :, 1].mean(1)
+            key = tile_snake_key(mx, my, tile_size, origin)
+        order = torch.argsort(key, stable=True)
+        return states.map(lambda leaf: leaf[order])
 
 
 def make_autoreset_step(params: VehicleParams, map_data: MapData,
@@ -256,24 +258,28 @@ def make_autoreset_step(params: VehicleParams, map_data: MapData,
     timestep = torch.as_tensor(timestep, dtype=cfg.torch_dtype, device=dev)
 
     def step(states: SimState, actions: torch.Tensor):
-        states, obs, reward, done, info = batch_step(
-            states, actions, params, map_data, tables, cfg, timestep,
-            generator)
-        if reset_to_start:
-            poses = torch.stack(
-                [states.start_xs, states.start_ys, states.start_thetas], -1)
-        elif pose_sampler is not None:
-            poses = pose_sampler(generator, (states.num_envs, cfg.num_agents))
-        else:
-            poses = reset_poses
-        fresh = init_state(poses, cfg)
+        with annotate("vector.step"):
+            states, obs, reward, done, info = batch_step(
+                states, actions, params, map_data, tables, cfg, timestep,
+                generator)
+            with annotate("vector.reset"):
+                if reset_to_start:
+                    poses = torch.stack([states.start_xs, states.start_ys,
+                                         states.start_thetas], -1)
+                elif pose_sampler is not None:
+                    poses = pose_sampler(generator,
+                                         (states.num_envs, cfg.num_agents))
+                else:
+                    poses = reset_poses
+                fresh = init_state(poses, cfg)
 
-        def select(new, cur):
-            d = done.view(done.shape + (1,) * (cur.dim() - 1))
-            return torch.where(d, new, cur)
+                def select(new, cur):
+                    d = done.view(done.shape + (1,) * (cur.dim() - 1))
+                    return torch.where(d, new, cur)
 
-        states = SimState(**{k: select(getattr(fresh, k), getattr(states, k))
-                             for k in states.__dataclass_fields__})
+                states = SimState(**{
+                    k: select(getattr(fresh, k), getattr(states, k))
+                    for k in states.__dataclass_fields__})
         return states, obs, reward, done, info
 
     step.generator = generator

@@ -189,7 +189,9 @@ def device_time_by_name(prof, steps: int) -> dict:
     With CUDA activity, the names are the card's kernels and copies and
     the times their device time; without it (a CPU run), the names are the
     CPU ops and the times their self time, which is what runs on that
-    device. Returns ``by_name`` ({name: {ms_per_step, calls_per_step}},
+    device. ``record_function`` ranges (the port's spans), which the
+    profiler draws on both timelines, are no ops and are left out.
+    Returns ``by_name`` ({name: {ms_per_step, calls_per_step}},
     largest first), ``total_ms_per_step``, ``wall_ms_per_step`` (the
     profiled span, first event to last) and ``busy_share`` (the total over
     the span). A profile of the card without device time raises: its
@@ -201,7 +203,7 @@ def device_time_by_name(prof, steps: int) -> dict:
     want = DeviceType.CUDA if on_card else DeviceType.CPU
     by_name = {}
     for e in prof.key_averages():
-        if e.device_type != want:
+        if e.device_type != want or getattr(e, "is_user_annotation", False):
             continue
         us = (getattr(e, "self_device_time_total", None)
               or getattr(e, "self_cuda_time_total", 0)) if on_card \

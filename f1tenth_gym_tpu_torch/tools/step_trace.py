@@ -5,7 +5,10 @@ workload under the profiler (CPU and CUDA activity on the card) and prints
 the top 15 names by device ms a step, their total, the busy share (device
 time over the profiled wall time) and K1's launches a step, found by its
 kernel name (``scan_sweep_kernel``: the ctypes launch has no profiler
-range of its own).
+range of its own); then the port's spans (``utils/profiling.annotate``)
+a step: calls, host ms, host self ms, the card's time in the kernels each
+span launched (from the profile, its child spans' kernels included) and,
+for spans that record it, the extent on the card's timeline.
 
     python -m f1tenth_gym_tpu_torch.tools.step_trace single  # bench racing step
     python -m f1tenth_gym_tpu_torch.tools.step_trace multi   # 16-track domain-rand step
@@ -30,6 +33,7 @@ import torch
 
 from f1tenth_gym_tpu_torch.config import resolve_device
 from f1tenth_gym_tpu_torch.tools import common
+from f1tenth_gym_tpu_torch.utils import profiling
 
 
 def build_single(envs: int, num_beams: int, device=None):
@@ -59,8 +63,10 @@ def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
           device=None) -> dict:
     """Profile ``steps`` steps of workload ``kind``; returns
     ``common.device_time_by_name``'s dict with ``k1`` (K1's ms and
-    launches a step, from the profile) and ``k1_wrapper_launches`` (the
-    wrapper's count over the profiled steps)."""
+    launches a step, from the profile), ``k1_wrapper_launches`` (the
+    wrapper's count over the profiled steps) and ``spans`` (the port's
+    spans a step: {name: {calls, host_ms, host_self_ms, extent_ms,
+    kernel_ms}})."""
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
 
     dev = resolve_device(device)
@@ -78,12 +84,55 @@ def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
         box[0] = step(box[0])
 
     before = sk.sweep.launches
+    profiling.clear_spans()
     prof = common.profile(one, steps, dev)
     t = common.device_time_by_name(prof, steps)
+    spans = {name: {k: None if v is None else v / steps
+                    for k, v in d.items()}
+             for name, d in profiling.span_summary("vector.step").items()}
+    for name, ms in span_kernel_ms(prof, spans).items():
+        spans[name]["kernel_ms"] = ms / steps
+    # the profiler links K1's ctypes launch to no range: its time, found
+    # by name, goes to ``scan.k1`` and the spans around it
+    k1 = common.named(t["by_name"], common.K1_NAME)
+    up = {r.name: r.parent for r in profiling.TABLE.records}
+    name = "scan.k1"
+    while name in spans:
+        spans[name]["kernel_ms"] += k1["ms_per_step"]
+        name = up[name]
     return dict(kind=kind, envs=envs, agents=2, beams=num_beams, steps=steps,
                 device=common.device_name(dev), **t,
-                k1=common.named(t["by_name"], common.K1_NAME),
-                k1_wrapper_launches=sk.sweep.launches - before)
+                k1=k1,
+                k1_wrapper_launches=sk.sweep.launches - before, spans=spans)
+
+
+def span_kernel_ms(prof, names) -> dict:
+    """{span: ms of the card's work in the kernels it launched}, summed
+    over the profile: the device time the profiler gives the span's host
+    range, which holds its child spans' and ops' kernels (0 on the CPU)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        if e.key in names and e.device_type == DeviceType.CPU:
+            us = getattr(e, "device_time_total", None)
+            out[e.key] = (us if us is not None
+                          else getattr(e, "cuda_time_total", 0)) / 1e3
+    return out
+
+
+def print_spans(spans: dict):
+    """The span table a step, largest host time first: calls, host ms,
+    host self ms, kernel ms and extent ms ("-" where not recorded)."""
+    def ms(v):
+        return "         -" if v is None else f"{v:10.3f}"
+
+    print("  calls/step   host ms  self ms  kernel ms  extent ms  span",
+          flush=True)
+    for name, v in sorted(spans.items(), key=lambda kv: -kv[1]["host_ms"]):
+        print(f"  {v['calls']:10.2f} {v['host_ms']:9.3f} "
+              f"{v['host_self_ms']:8.3f} {ms(v.get('kernel_ms'))} "
+              f"{ms(v['extent_ms'])}  {name}", flush=True)
 
 
 def main(argv=None):
@@ -99,8 +148,9 @@ def main(argv=None):
               int(os.environ.get("TRACE_STEPS", 8)), args.beams, args.tracks,
               args.seed, args.device)
     common.print_top(f"{args.kind}: {r['steps']} steps on {r['device']}", r)
-    print(json.dumps({k: v for k, v in r.items() if k != "by_name"}),
-          flush=True)
+    print_spans(r["spans"])
+    print(json.dumps({k: v for k, v in r.items()
+                      if k not in ("by_name", "spans")}), flush=True)
     return r
 
 

@@ -28,6 +28,7 @@ import torch
 
 from f1tenth_gym_tpu_torch.config import resolve_device
 from f1tenth_gym_tpu_torch.state import MapData, SimState
+from f1tenth_gym_tpu_torch.utils.profiling import annotate
 
 
 class TrackInfo(NamedTuple):
@@ -203,14 +204,16 @@ def multi_track_locality_sort(map_data: MapData, infos: List[TrackInfo]):
                          dtype=torch.float32, device=dev)
 
     def sort(states: SimState) -> SimState:
-        x = states.x[:, 0, 0].to(torch.float32)
-        y = states.x[:, 0, 1].to(torch.float32)
-        cell = torch.clamp(
-            (torch.floor(y / cell_h) * g + torch.floor(x / cell_w)).to(
-                torch.int32), 0, n - 1).to(torch.int64)
-        d = wp[cell] - torch.stack([x, y], -1)[:, None, :]
-        sidx = torch.argmin(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1], -1)
-        order = torch.argsort(cell * (2 ** 20) + sidx, stable=True)
-        return states.map(lambda leaf: leaf[order])
+        with annotate("vector.sort"):
+            x = states.x[:, 0, 0].to(torch.float32)
+            y = states.x[:, 0, 1].to(torch.float32)
+            cell = torch.clamp(
+                (torch.floor(y / cell_h) * g + torch.floor(x / cell_w)).to(
+                    torch.int32), 0, n - 1).to(torch.int64)
+            d = wp[cell] - torch.stack([x, y], -1)[:, None, :]
+            sidx = torch.argmin(d[..., 0] * d[..., 0]
+                                + d[..., 1] * d[..., 1], -1)
+            order = torch.argsort(cell * (2 ** 20) + sidx, stable=True)
+            return states.map(lambda leaf: leaf[order])
 
     return sort

@@ -94,7 +94,9 @@ def main():
             else:
                 st["kernel_ms"] = e.device_time_total * per_step
                 st["host_ms"] = e.cpu_time_total * per_step
-        elif e.device_type == DeviceType.CUDA:
+        elif e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            # the port's spans are drawn on the card's timeline too
             us = (getattr(e, "self_device_time_total", None)
                   or getattr(e, "self_cuda_time_total", 0))
             kern.append((us, e.count, e.key))

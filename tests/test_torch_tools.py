@@ -146,11 +146,22 @@ def test_rect_union_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["single", "multi"])
-def test_step_trace_on_cpu(monkeypatch, kind):
+def test_step_trace_on_cpu(monkeypatch, capsys, kind):
     monkeypatch.setenv("TRACE_ENVS", "16")
     monkeypatch.setenv("TRACE_STEPS", "2")
     r = step_trace.main([kind, "--device", "cpu", "--beams", "108",
                          "--tracks", "2"])
+    # the port's spans, a step each, printed after the kernel table
+    out = capsys.readouterr().out
+    for name in ("vector.step", "env.step", "sim.opp_clip", "scan.k1",
+                 "vector.reset"):
+        assert r["spans"][name]["calls"] == 1.0 and f"  {name}\n" in out
+    assert r["spans"]["vector.step"]["host_ms"] > 0
+    # no kernels on the CPU; the clip's extent is its host time there
+    assert all(v["kernel_ms"] == 0.0 for v in r["spans"].values())
+    clip = r["spans"]["sim.opp_clip"]
+    assert clip["extent_ms"] == pytest.approx(clip["host_ms"], rel=1e-12)
+    assert r["spans"]["vector.step"]["extent_ms"] is None
     assert r["kind"] == kind and r["device"] == "cpu"
     assert r["timeline"] == "cpu ops" and r["by_name"]
     assert 0 < r["busy_share"] <= 1.0
