@@ -4,8 +4,9 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. build   — the CUDA scan and overlay kernels (nvcc, sm_90a) and the
-             native host library (g++), all started together; each
+1. build   — the CUDA scan, overlay and opponent clip kernels (nvcc,
+             sm_90a) and the native host library (g++), all started
+             together; each
              kernel's registers, shared memory and spills, and its resident
              blocks an SM and waves at the main path's shape;
 2. maps    — example_map culled at 1.25 m tiles, berlin and stata_basement
@@ -29,6 +30,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              of the beams, each at the edge of its blocked-view window
              (a beam grazing a box corner), and its times beside the
              bound;
+4b. opp_clip — K3, the racing step's opponent clip: the clip's own
+             inputs at step CLIP_STEP of the benchmark's racing step
+             (example_map, 16,384 envs x 2 agents x 1080 beams) and the
+             fuzz ensemble (``ops/opp_clip_fuzz.py``: 4096 envs of 2 and
+             4 agents, 1080 and 1081 beams, power-of-two and default scan
+             tables; 8 envs of CLIP_MANY_AGENTS, more opponents than one
+             chunk of K3's shared memory), in float32 and float64: K3 ==
+             its plain version bit for bit after each synchronised launch;
+             CLIP_PARITY_STEPS steps with K3 against the same steps
+             with the plain clip from the same state and noise, every
+             state leaf bit for bit, one launch a step; K3's time at
+             32,768 scans beside the plain version's, a copy of the scans
+             and the bytes bound;
 5. gates   — kernel vs marching engine MSE < 2.0 on the three maps
              (32 poses each, over the beams whose march stays inside the
              map raster; the all-beam MSE is printed beside it), the iTTC
@@ -41,7 +55,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 8. main    — the bench racing step: 4096 envs x 2 agents x 1080 beams,
              auto-reset to each env's start grid, gap-follow policy,
              locality re-sort every 16 steps; 16 warm-up + 256 timed steps;
-             one scan-kernel launch per step, no overlay launch;
+             one scan-kernel and one opponent-clip launch per step, no
+             overlay launch;
 9. timing  — times of the scan kernel (culled, full, and culled with its
              row skip off) and of the plain version at the main path's
              shapes, beside the bound recounted from the pairs that hit
@@ -147,7 +162,9 @@ host's enqueue time a call, which is of the same order as the kernels.
 Then the ``kernels`` line (K1's entry carries its launches on each path:
 ``launches`` on the main path, and those of the later phases, among them
 ``sharded_launches``, ``sharded_rank_launches``, ``bench_launches`` and
-``tools_launches``; K2's carries the probes' ``tools_launches``),
+``tools_launches``; K2's carries the probes' ``tools_launches``; K3's
+carries its main-path ``launches`` and those of phase 4b's step parity
+run, ``parity_launches``),
 the card's name and power limit, and the result line. Exits non-zero without a result when no CUDA device is present.
 """
 
@@ -165,10 +182,16 @@ import numpy as np
 import torch
 
 from f1tenth_gym_tpu_torch.bench import bench_poses as _bench_poses
+from f1tenth_gym_tpu_torch.ops.opp_clip_fuzz import (
+    fuzz_opp_clip_inputs,
+    opp_clip_tables,
+    same_bits,
+)
 from f1tenth_gym_tpu_torch.bench import (
     gap_follow,
     gate_mse,
     gate_poses,
+    grid_of,
     inside_raster,
     ittc_collision_gate,
     main_path,
@@ -187,6 +210,12 @@ LEAK_CAP = 1e-6             # vertex-leak beams allowed, share of beams swept
 FUZZ_SCANS, FUZZ_OPPONENTS = 4096, 3
 OVERLAY_ATOL = 2e-3         # overlay kernel vs ray_cast_opponents, metres
 OVERLAY_CAP = 1e-6          # beams allowed beyond it, share of beams
+# the opponent clip (K3): the benchmark's batch, the step whose clip
+# inputs it is checked and timed on, and the steps of the step parity run
+CLIP_ENVS, CLIP_STEP, CLIP_PARITY_STEPS = 16384, 40, 8
+# agent counts above one chunk of opponents in K3's shared memory (16),
+# on few envs: the plain clip's broadcast grows as A^2
+CLIP_MANY_AGENTS, CLIP_MANY_ENVS = (18, 40, 64), 8
 SEG_ENVS, SEG_STEPS = 64, 4
 ENV_STEPS = 200             # F110Env gap-follow steps
 PPO_MAP, PPO_ENVS, PPO_ITERS = "compact", 1024, 3  # examples/train_ppo.py
@@ -456,6 +485,138 @@ def overlay_phase(bench_scans, bench_poses, tables, params, card_name):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
         "ray_cast_opponents_ms": ray_ms,
+        "enqueue_us": t_k["enqueue_us"],
+    }
+
+
+def opp_clip_phase(m, tables, params, card_name):
+    """K3, the opponent clip (module docstring, phase 4b). Returns the
+    kernel's entry of the kernels line."""
+    import f1tenth_gym_tpu_torch as P
+    from f1tenth_gym_tpu_torch.ops import opp_clip_kernel as oc
+
+    dev = tables.fov.device
+    cfg = P.SimConfig(num_agents=AGENTS, num_beams=BEAMS, dtype="float32",
+                      scan_engine="kernel", scan_noise=True)
+    gen = P.make_generator(dev, 0)
+    poses = _bench_poses(m, 7, CLIP_ENVS, AGENTS, component_seed=(0.7, 0.0))
+    s, *_ = P.batch_reset(poses, params, m, tables, cfg, 0.01, generator=gen,
+                          device=dev)
+    astep = P.make_autoreset_step(params, m, tables, cfg, 0.01,
+                                  reset_to_start=True, generator=gen,
+                                  device=dev)
+    sort_kw = grid_of(m)
+
+    def drive(s, n):
+        for _ in range(n):
+            s = astep(s, gap_follow(s.scans))[0]
+        return s
+
+    s = drive(P.sort_envs_for_locality(s, **sort_kw), CLIP_STEP - 1)
+
+    # the racing step's own inputs to the clip, at step CLIP_STEP
+    real = oc._opp_clip_cuda
+    seen = {}
+
+    def keep(x, scans, vertices, t):
+        seen["in"] = (x.clone(), scans.clone(), vertices.clone())
+        return real(x, scans, vertices, t)
+
+    oc._opp_clip_cuda = keep
+    try:
+        s = drive(s, 1)
+    finally:
+        oc._opp_clip_cuda = real
+    x, scans, verts = seen["in"]
+
+    # K3 == plain, bit for bit, each launch synchronised; the largest
+    # difference over the beams that are not NaN in both
+    checks = {}
+
+    def check(label, x, scans, verts, t):
+        before = oc.opp_clip.launches
+        got = oc.opp_clip(x, scans, verts, t)
+        torch.cuda.synchronize()
+        require(oc.opp_clip.launches == before + 1, f"opp_clip {label}: "
+                f"{oc.opp_clip.launches - before} launches")
+        want = oc.opp_clip_plain(x, scans, verts, t)
+        require(same_bits(got, want), f"opp_clip {label}: K3 != plain on "
+                f"{int((got != want).sum())} beams")
+        both_nan = torch.isnan(got) & torch.isnan(want)
+        err = torch.where((got == want) | both_nan, 0.0,
+                          (got - want).abs()).max()
+        checks[label] = dict(scans=got.numel() // got.shape[-1],
+                             clipped=int((got != scans).sum()),
+                             max_abs_err=float(err))
+
+    t64 = P.make_scan_tables(num_beams=BEAMS, dtype=torch.float64,
+                             device=dev)
+    check("bench_f32", x, scans, verts, tables)
+    check("bench_f64", x.double(), scans.double(), verts.double(), t64)
+    for dt in (torch.float32, torch.float64):
+        for agents in (2, 4):
+            for beams, exact in ((BEAMS, True), (BEAMS, False),
+                                 (BEAMS + 1, True)):
+                t = (opp_clip_tables(beams, dt, dev) if exact else
+                     P.make_scan_tables(num_beams=beams, dtype=dt,
+                                        device=dev))
+                fz = fuzz_opp_clip_inputs(FUZZ_SCANS, agents, t,
+                                          seed=agents + beams)
+                check(f"fuzz_{str(dt)[6:]}_A{agents}_B{beams}"
+                      f"{'_exact' if exact else ''}", *fz, t)
+        # more opponents than one chunk of K3's shared memory holds
+        for agents in CLIP_MANY_AGENTS:
+            t = opp_clip_tables(BEAMS, dt, dev)
+            fz = fuzz_opp_clip_inputs(CLIP_MANY_ENVS, agents, t, seed=agents)
+            check(f"fuzz_{str(dt)[6:]}_A{agents}_B{BEAMS}_exact", *fz, t)
+
+    # the step with K3 against the same steps with the plain clip: the
+    # same states, bit for bit, and one launch a step
+    start, g0 = s.map(torch.clone), gen.get_state()
+    before = oc.opp_clip.launches
+    s_k = drive(start, CLIP_PARITY_STEPS)
+    torch.cuda.synchronize()
+    parity_launches = oc.opp_clip.launches - before
+    require(parity_launches == CLIP_PARITY_STEPS,
+            f"opp_clip: {parity_launches} launches in {CLIP_PARITY_STEPS} "
+            "steps")
+    gen.set_state(g0)
+    oc._opp_clip_cuda = oc.opp_clip_plain
+    try:
+        s_p = drive(start, CLIP_PARITY_STEPS)
+    finally:
+        oc._opp_clip_cuda = real
+    torch.cuda.synchronize()
+    for f in dataclasses.fields(s_k):
+        require(same_bits(getattr(s_k, f.name), getattr(s_p, f.name)),
+                f"opp_clip: the step with K3 parts from the plain clip's "
+                f"in {f.name}")
+
+    # times at the benchmark's 16,384 x 2 x 1080 (32,768 scans)
+    t_k = kernel_ms(lambda: oc.opp_clip(x, scans, verts, tables), 50)
+    copy_ms = kernel_ms(lambda: scans.clone(), 50)["ms"]
+    plain_ms = cuda_ms(lambda: oc.opp_clip_plain(x, scans, verts, tables), 5)
+    # bytes: scans read once and written once (the poses' three columns
+    # and the boxes add 0.7 %)
+    t_bytes = 2 * scans.numel() * 4 / H100_BYTES_PER_S * 1e3
+    emit("opp_clip", card=card_name, checks=checks,
+         step_parity_steps=CLIP_PARITY_STEPS, parity_launches=parity_launches,
+         ms=t_k["ms"], eager_ms=t_k["eager_ms"], enqueue_us=t_k["enqueue_us"],
+         plain_ms=plain_ms, bound_ms=t_bytes, bound_share=t_bytes / t_k["ms"],
+         scans_copy_ms=copy_ms,
+         occupancy=oc.occupancy(scans.numel() // BEAMS, AGENTS, BEAMS))
+    return {
+        "name": "opp_clip_kernel",
+        "route": "cuda",
+        "source": "f1tenth_gym_tpu_torch/csrc/opp_clip_kernel.cu",
+        "replaces": None,
+        "parity_launches": parity_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+        "ms": t_k["ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": t_bytes,
+        "bound_by": "bytes",
+        "library_ms": None,
         "enqueue_us": t_k["enqueue_us"],
     }
 
@@ -1228,6 +1389,10 @@ def tools_phase(dev, card_name, packs):
                 and t["k1_wrapper_launches"] == TOOL_TRACE_STEPS,
                 f"step_trace {kind}: K1 {t['k1']}, "
                 f"{t['k1_wrapper_launches']} wrapper launches")
+        require(t["k3"]["calls_per_step"] == 1
+                and t["k3_wrapper_launches"] == TOOL_TRACE_STEPS,
+                f"step_trace {kind}: K3 {t['k3']}, "
+                f"{t['k3_wrapper_launches']} wrapper launches")
         names = list(t["by_name"])
         traces[kind] = dict(
             {k: v for k, v in t.items() if k != "by_name"},
@@ -1297,6 +1462,7 @@ def run(world_build, sweep_packs):
     from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
     from f1tenth_gym_tpu_torch.maps import map_path
     from f1tenth_gym_tpu_torch.ops import lidar as lidar_ops
+    from f1tenth_gym_tpu_torch.ops import opp_clip_kernel as oc
     from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
     from f1tenth_gym_tpu_torch.ops import segments as seg_ops
@@ -1310,12 +1476,14 @@ def run(world_build, sweep_packs):
 
     # ---- 1. build: one nvcc per kernel and g++, side by side
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         f_scan = pool.submit(sk.build_cuda)
         f_overlay = pool.submit(ok.build_cuda)
+        f_clip = pool.submit(oc.build_cuda)
         f_native = pool.submit(native.build)
         ptxas = {"scan_kernel": f_scan.result(),
-                 "overlay_kernel": f_overlay.result()}
+                 "overlay_kernel": f_overlay.result(),
+                 "opp_clip_kernel": f_clip.result()}
         f_native.result()
     build_s = time.time() - t0
     # K1: one instantiation per (phase mask, subgroup size); the main
@@ -1328,11 +1496,13 @@ def run(world_build, sweep_packs):
             f"scan kernel spills: {variants}")
     report = {"scan_kernel": prod, "scan_kernel_variants": {
         f"phases={p},sub={q}": v for (p, q), v in sorted(variants.items())},
-        "overlay_kernel": [ln.strip() for ln in ptxas["overlay_kernel"]
-                           .splitlines() if "registers" in ln or "spill" in ln]}
+        **{name: [ln.strip() for ln in ptxas[name].splitlines()
+                  if "registers" in ln or "spill" in ln]
+           for name in ("overlay_kernel", "opp_clip_kernel")}}
     emit("build", seconds=build_s, ptxas=report, occupancy={
         "scan_kernel": sk.occupancy(ENVS * AGENTS, BEAMS),
-        "overlay_kernel": ok.occupancy(ENVS * AGENTS, BEAMS)})
+        "overlay_kernel": ok.occupancy(ENVS * AGENTS, BEAMS),
+        "opp_clip_kernel": oc.occupancy(ENVS * AGENTS, AGENTS, BEAMS)})
 
     # ---- 2. maps (tile packs are disk-cached under the package's _build/)
     def timed_load(name, **kw):
@@ -1444,6 +1614,9 @@ def run(world_build, sweep_packs):
     overlay_entry = overlay_phase(bench_scans, poses_ex, tables, params,
                                   card_name)
 
+    # ---- 4b. the opponent clip (K3): its checks, the step's parity, times
+    clip_entry = opp_clip_phase(m_ex, tables, params, card_name)
+
     # ---- 5. gates of bench.py:230-289 (f1tenth_gym_tpu_torch/bench.py's)
     mse, mse_all, left, pose_sum = {}, {}, {}, {}
     for name, cp in checks.items():
@@ -1513,6 +1686,7 @@ def run(world_build, sweep_packs):
     torch.cuda.synchronize()
     sk.sweep.launches = 0
     ok.overlay.launches = 0
+    oc.opp_clip.launches = 0
     t0 = time.time()
     s, dones = drive(s, STEPS)
     torch.cuda.synchronize()
@@ -1521,6 +1695,9 @@ def run(world_build, sweep_packs):
     dones = int(dones)
     require(launches == STEPS, f"{launches} kernel launches in {STEPS} steps")
     require(ok.overlay.launches == 0, "the racing step launched the overlay")
+    clip_launches = oc.opp_clip.launches
+    require(clip_launches == STEPS,
+            f"{clip_launches} opponent clip launches in {STEPS} steps")
     scan_stats = scans_in_range(s, tables, "main path")
     require(dones > 0 and bool((s.steps < int(s.steps.max())).any()),
             "no env was done and reset")
@@ -1528,7 +1705,7 @@ def run(world_build, sweep_packs):
     emit("main_path", envs=ENVS, agents=AGENTS, beams=BEAMS, steps=STEPS,
          seconds=elapsed, env_steps_per_s=rate, dones=dones,
          kernel_launches=launches, overlay_launches=ok.overlay.launches,
-         scans=scan_stats)
+         opp_clip_launches=clip_launches, scans=scan_stats)
 
     # ---- 9. kernel timing at the main path's shapes, mid sort period
     s, _ = drive(s, SORT_PERIOD // 2)
@@ -1609,7 +1786,8 @@ def run(world_build, sweep_packs):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
         "enqueue_us": t_culled["enqueue_us"],
-    }, overlay_entry]}), flush=True)
+    }, overlay_entry, {"launches": clip_launches, **clip_entry}]}),
+        flush=True)
     print(card_name, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ core/simulator.py:141-263:
   5. noise, before iTTC                      (laser_models.py:450-452)
   6. collision boxes from the PRE-zeroing pose
   7. iTTC, which zeroes x[3:], yaw included  (base_classes.py:229-254)
-  8. opponent ray cast from the POST-zeroing scan pose
+  8. opponent ray cast from the POST-zeroing scan pose (K3 on the card,
+     ``ops/opp_clip_kernel.py``)
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from f1tenth_gym_tpu_torch.config import (
 from f1tenth_gym_tpu_torch.ops import collision as col_ops
 from f1tenth_gym_tpu_torch.ops import dynamics as dyn_ops
 from f1tenth_gym_tpu_torch.ops import lidar as lidar_ops
+from f1tenth_gym_tpu_torch.ops import opp_clip_kernel
 from f1tenth_gym_tpu_torch.ops import scan_kernel
 from f1tenth_gym_tpu_torch.ops import segments as seg_ops
 from f1tenth_gym_tpu_torch.state import (
@@ -160,15 +162,7 @@ def sim_step(state: SimState, actions: torch.Tensor, params: VehicleParams,
     A = cfg.num_agents
     if A > 1:
         with annotate("sim.opp_clip", extent=True):
-            poses_post = torch.stack(
-                [x_new[..., IX_X], x_new[..., IX_Y], x_new[..., IX_YAW]], -1)
-            # row i: the agents other than i, ascending (made on the card,
-            # so that indexing copies nothing there)
-            k = torch.arange(A - 1, device=x_new.device)
-            opp_idx = k + (k >= torch.arange(A, device=x_new.device)[:, None])
-            opp_vertices = vertices[..., opp_idx, :, :]  # (E, A, A-1, 4, 2)
-            scans = col_ops.ray_cast_opponents(poses_post, scans,
-                                               opp_vertices, tables)
+            scans = opp_clip_kernel.opp_clip(x_new, scans, vertices, tables)
 
     new_state = state.replace(
         x=x_new,

@@ -13,7 +13,8 @@ is once:
 * ``device_time_by_name``: a ``torch.profiler`` result as device ms a
   step by kernel name, their total and the busy share. K1 is launched
   through ctypes, so no ``record_function`` range covers it: it is found
-  by its kernel name, ``scan_sweep_kernel`` (``K1_NAME``).
+  by its kernel name, ``scan_sweep_kernel`` (``K1_NAME``), as K3 is by
+  ``opp_clip_kernel`` (``K3_NAME``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ LEAK_CAP = 1e-6   # vertex-leak beams allowed between two sweeps, a share
                   # of the beams (chip_smoke.py's rule on split packs)
 K1_NAME = "scan_sweep_kernel"
 K2_NAME = "overlay_kernel"
+K3_NAME = "opp_clip_kernel"
 EXAMPLE_SEED_XY = (0.7, 0.0)   # the corridor of example_map's start pose
 
 
@@ -229,7 +231,7 @@ def device_time_by_name(prof, steps: int) -> dict:
 
 def named(by_name: dict, part: str) -> dict:
     """The summed ``device_time_by_name`` entries whose name holds
-    ``part`` (a kernel's name: K1_NAME, K2_NAME)."""
+    ``part`` (a kernel's name: K1_NAME, K2_NAME, K3_NAME)."""
     hits = [v for k, v in by_name.items() if part in k]
     return dict(ms_per_step=sum(v["ms_per_step"] for v in hits),
                 calls_per_step=sum(v["calls_per_step"] for v in hits))

@@ -3,12 +3,13 @@
 Port of ``tools/step_trace.py``. Runs TRACE_STEPS steps of the chosen
 workload under the profiler (CPU and CUDA activity on the card) and prints
 the top 15 names by device ms a step, their total, the busy share (device
-time over the profiled wall time) and K1's launches a step, found by its
-kernel name (``scan_sweep_kernel``: the ctypes launch has no profiler
-range of its own); then the port's spans (``utils/profiling.annotate``)
-a step: calls, host ms, host self ms, the card's time in the kernels each
-span launched (from the profile, its child spans' kernels included) and,
-for spans that record it, the extent on the card's timeline.
+time over the profiled wall time) and the launches a step of K1 and K3,
+found by their kernel names (``scan_sweep_kernel``, ``opp_clip_kernel``:
+a ctypes launch has no profiler range of its own); then the port's spans
+(``utils/profiling.annotate``) a step: calls, host ms, host self ms, the
+card's time in the kernels each span launched (from the profile, its
+child spans' kernels included) and, for spans that record it, the extent
+on the card's timeline.
 
     python -m f1tenth_gym_tpu_torch.tools.step_trace single  # bench racing step
     python -m f1tenth_gym_tpu_torch.tools.step_trace multi   # 16-track domain-rand step
@@ -62,11 +63,13 @@ def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
           num_beams: int = 1080, tracks: int = 16, seed: int = 0,
           device=None) -> dict:
     """Profile ``steps`` steps of workload ``kind``; returns
-    ``common.device_time_by_name``'s dict with ``k1`` (K1's ms and
-    launches a step, from the profile), ``k1_wrapper_launches`` (the
-    wrapper's count over the profiled steps) and ``spans`` (the port's
+    ``common.device_time_by_name``'s dict with ``k1`` and ``k3`` (K1's
+    and K3's ms and launches a step, from the profile),
+    ``k1_wrapper_launches`` and ``k3_wrapper_launches`` (the wrappers'
+    counts over the profiled steps) and ``spans`` (the port's
     spans a step: {name: {calls, host_ms, host_self_ms, extent_ms,
     kernel_ms}})."""
+    from f1tenth_gym_tpu_torch.ops import opp_clip_kernel as oc
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
 
     dev = resolve_device(device)
@@ -83,7 +86,7 @@ def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
     def one():
         box[0] = step(box[0])
 
-    before = sk.sweep.launches
+    before, before_k3 = sk.sweep.launches, oc.opp_clip.launches
     profiling.clear_spans()
     prof = common.profile(one, steps, dev)
     t = common.device_time_by_name(prof, steps)
@@ -92,18 +95,22 @@ def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
              for name, d in profiling.span_summary("vector.step").items()}
     for name, ms in span_kernel_ms(prof, spans).items():
         spans[name]["kernel_ms"] = ms / steps
-    # the profiler links K1's ctypes launch to no range: its time, found
-    # by name, goes to ``scan.k1`` and the spans around it
+    # the profiler links the ctypes launches of K1 and K3 to no range:
+    # each one's time, found by name, goes to the span that launches it
+    # and the spans around that
     k1 = common.named(t["by_name"], common.K1_NAME)
+    k3 = common.named(t["by_name"], common.K3_NAME)
     up = {r.name: r.parent for r in profiling.TABLE.records}
-    name = "scan.k1"
-    while name in spans:
-        spans[name]["kernel_ms"] += k1["ms_per_step"]
-        name = up[name]
+    for name, k in (("scan.k1", k1), ("sim.opp_clip", k3)):
+        while name in spans:
+            spans[name]["kernel_ms"] += k["ms_per_step"]
+            name = up[name]
     return dict(kind=kind, envs=envs, agents=2, beams=num_beams, steps=steps,
                 device=common.device_name(dev), **t,
-                k1=k1,
-                k1_wrapper_launches=sk.sweep.launches - before, spans=spans)
+                k1=k1, k3=k3,
+                k1_wrapper_launches=sk.sweep.launches - before,
+                k3_wrapper_launches=oc.opp_clip.launches - before_k3,
+                spans=spans)
 
 
 def span_kernel_ms(prof, names) -> dict:

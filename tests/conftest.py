@@ -27,6 +27,11 @@ jax.config.update("jax_enable_x64", True)
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skipped on the CPU")
+
+
 @pytest.fixture(scope="session")
 def example_map_path():
     """Path to the bundled copy of the reference's example map."""
