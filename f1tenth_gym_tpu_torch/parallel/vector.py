@@ -199,7 +199,8 @@ def tile_snake_key(x, y, tile_size: float, origin=(0.0, 0.0)):
 
 
 def sort_envs_for_locality(states: SimState, tile_size: float = None,
-                           origin: Tuple[float, float] = (0.0, 0.0)) -> SimState:
+                           origin: Tuple[float, float] = (0.0, 0.0),
+                           return_order: bool = False):
     """Reorder the env batch so spatially near envs are batch-adjacent.
 
     A pure relabeling (envs are independent) that keeps the kernel's
@@ -207,6 +208,11 @@ def sort_envs_for_locality(states: SimState, tile_size: float = None,
     (the map's culling grid) envs are keyed on the tile of their agents'
     midpoint in snake order; without, on a 6 m / 1.5 m block key. Not to
     be combined with positional ``reset_poses`` auto-reset.
+
+    Returns the sorted states; with ``return_order``, ``(states, order)``:
+    the (E,) int64 permutation applied, new slot k holding the env of old
+    slot ``order[k]``, so that per-env data kept outside the state follows
+    its env as ``data[order]``.
     """
     with annotate("vector.sort"):
         if tile_size is None:
@@ -222,7 +228,8 @@ def sort_envs_for_locality(states: SimState, tile_size: float = None,
             my = states.x[:, :, 1].mean(1)
             key = tile_snake_key(mx, my, tile_size, origin)
         order = torch.argsort(key, stable=True)
-        return states.map(lambda leaf: leaf[order])
+        states = states.map(lambda leaf: leaf[order])
+    return (states, order) if return_order else states
 
 
 def make_autoreset_step(params: VehicleParams, map_data: MapData,

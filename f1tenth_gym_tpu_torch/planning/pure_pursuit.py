@@ -14,15 +14,34 @@ segments sequentially and breaks at the first circle intersection; here
 every segment is tested at once and "first" is the argmin of the cyclic
 segment order starting at the nearest segment (``torch.argmin`` returns
 the first minimum, as ``jnp.argmin`` does, which that order relies on).
+
+The circle test's constant term is |start - point|^2 - r^2, the reference's
+|start|^2 + |point|^2 - 2 start.point - r^2 written without its
+cancellation: in float32 at example_map's ~50 m coordinates the expanded
+form is off by ~1e-3 m^2, enough to move a root across 0 or 1 at a
+segment's end, so that neither segment at a vertex holds the crossing and
+the search runs round the loop to a point behind the car.
+
+The lookahead distance and the speed gain may be numbers or per-car
+tensors that broadcast against the poses' leading axes (an (E, 1) tensor
+for (E, A=1) poses: a gain sweep). Spans (``utils/profiling.annotate``):
+``plan.step`` around a whole plan (with its extent on the card's
+timeline), and inside it ``plan.nearest``, ``plan.lookahead`` and
+``plan.actuation``; ``pure_pursuit_plan.cars`` counts the cars planned.
 """
 
 from __future__ import annotations
+
+from typing import Union
 
 import numpy as np
 import torch
 
 from f1tenth_gym_tpu_torch.config import resolve_device
 from f1tenth_gym_tpu_torch.state import IX_X, IX_Y, IX_YAW
+from f1tenth_gym_tpu_torch.utils.profiling import annotate
+
+Gain = Union[float, torch.Tensor]
 
 
 def _take(a, idx):
@@ -75,14 +94,13 @@ def first_point_on_trajectory_intersecting_circle(point, radius, trajectory,
     def dot(u, v):
         return u[..., 0] * v[..., 0] + u[..., 1] * v[..., 1]
 
-    p = point[..., None, :]
+    rel = starts - point[..., None, :]
     a = dot(V, V)
-    b = 2.0 * dot(V, starts - p)
+    b = 2.0 * dot(V, rel)
     r2 = radius * radius
     if isinstance(r2, torch.Tensor) and r2.dim():   # a radius a car
         r2 = r2[..., None]
-    c = (dot(starts, starts) + dot(point, point)[..., None]
-         - 2.0 * dot(starts, p) - r2)
+    c = dot(rel, rel) - r2
     disc = b * b - 4 * a * c
     has_root = disc >= 0.0
     sq = torch.sqrt(torch.where(has_root, disc, torch.zeros_like(disc)))
@@ -132,32 +150,49 @@ def pure_pursuit_plan(
 ):
     """Full planner step (waypoint_follow.py:183-217) for cars on any
     leading axes. Returns (speed, steer). The off-trajectory fallback is
-    the reference's: speed 4.0 un-gained, steer 0."""
+    the reference's: speed 4.0 un-gained, steer 0. ``lookahead_distance``
+    and ``vgain``: numbers, or tensors that broadcast against the poses
+    (one gain a car)."""
+    with annotate("plan.step", extent=True):
+        pure_pursuit_plan.cars += pose_x.numel()
+        return _plan(pose_x, pose_y, pose_theta, waypoints_xyv,
+                     lookahead_distance, vgain, wheelbase, max_reacquire)
+
+
+pure_pursuit_plan.cars = 0
+
+
+def _plan(pose_x, pose_y, pose_theta, waypoints_xyv, lookahead_distance,
+          vgain, wheelbase, max_reacquire):
     position = torch.stack([pose_x, pose_y], -1)
     wpts = waypoints_xyv[:, 0:2]
 
-    _, nearest_dist, t, i = nearest_point_on_trajectory(position, wpts)
+    with annotate("plan.nearest"):
+        _, nearest_dist, t, i = nearest_point_on_trajectory(position, wpts)
 
-    _, i2, _, found = first_point_on_trajectory_intersecting_circle(
-        position, lookahead_distance, wpts, i.to(position.dtype) + t)
-    # the reference takes the lookahead position from the *segment start*
-    # wpts[i2] (waypoint_follow.py:195-196), not the intersection point
-    speed_i = waypoints_xyv[i, 2:3]
-    current_wp_near = torch.cat([wpts[i2], speed_i], -1)
-    current_wp_far = torch.cat([wpts[i], speed_i], -1)
+    with annotate("plan.lookahead"):
+        _, i2, _, found = first_point_on_trajectory_intersecting_circle(
+            position, lookahead_distance, wpts, i.to(position.dtype) + t)
+    with annotate("plan.actuation"):
+        # the reference takes the lookahead position from the *segment
+        # start* wpts[i2] (waypoint_follow.py:195-196), not the
+        # intersection point
+        speed_i = waypoints_xyv[i, 2:3]
+        current_wp_near = torch.cat([wpts[i2], speed_i], -1)
+        current_wp_far = torch.cat([wpts[i], speed_i], -1)
 
-    within = nearest_dist < lookahead_distance
-    reacquire = nearest_dist < max_reacquire
+        within = nearest_dist < lookahead_distance
+        reacquire = nearest_dist < max_reacquire
 
-    lookahead_point = torch.where(within[..., None], current_wp_near,
-                                  current_wp_far)
-    have_point = torch.where(within, found, reacquire)
+        lookahead_point = torch.where(within[..., None], current_wp_near,
+                                      current_wp_far)
+        have_point = torch.where(within, found, reacquire)
 
-    speed, steer = get_actuation(pose_theta, lookahead_point, position,
-                                 lookahead_distance, wheelbase)
-    speed = vgain * speed
-    speed = torch.where(have_point, speed, torch.full_like(speed, 4.0))
-    steer = torch.where(have_point, steer, torch.zeros_like(steer))
+        speed, steer = get_actuation(pose_theta, lookahead_point, position,
+                                     lookahead_distance, wheelbase)
+        speed = vgain * speed
+        speed = torch.where(have_point, speed, torch.full_like(speed, 4.0))
+        steer = torch.where(have_point, steer, torch.zeros_like(steer))
     return speed, steer
 
 
@@ -196,8 +231,8 @@ class PurePursuitPlanner:
                                   vgain)
         return float(speed), float(steer)
 
-    def fused_plan_step(self, step_fn, lookahead_distance: float,
-                        vgain: float):
+    def fused_plan_step(self, step_fn, lookahead_distance: Gain,
+                        vgain: Gain):
         """Plan and step in one call per frame.
 
         The returned ``plan_step(state) -> (state, obs, reward, done,
@@ -205,7 +240,12 @@ class PurePursuitPlanner:
         state pose on the device and steps, so nothing comes back to the
         host unless the caller reads the obs. ``step_fn(state, actions)``
         is a functional step (``batch_step`` bound to its env, or
-        ``make_autoreset_step``'s)."""
+        ``make_autoreset_step``'s). ``lookahead_distance`` and ``vgain``
+        are numbers, or per-env tensors that broadcast against the (E, A)
+        poses, e.g. (E, 1): each env a candidate of a gain sweep. Per-env
+        gains are bound to env slots: after ``sort_envs_for_locality``
+        permute them with the order it returns (``return_order=True``)
+        and build the step again."""
         def plan_step(state):
             speed, steer = self._plan(state.x[..., IX_X], state.x[..., IX_Y],
                                       state.x[..., IX_YAW],
@@ -214,9 +254,11 @@ class PurePursuitPlanner:
 
         return plan_step
 
-    def batched_policy(self, lookahead_distance: float, vgain: float):
+    def batched_policy(self, lookahead_distance: Gain, vgain: Gain):
         """(generator, obs) -> (..., 2) actions policy for the vector env
-        and ``rollout``."""
+        and ``rollout``. The gains are numbers or per-env tensors that
+        broadcast against the obs' (E, A) poses, as in
+        ``fused_plan_step``."""
         def policy(generator, obs):
             speed, steer = self._plan(obs["poses_x"], obs["poses_y"],
                                       obs["poses_theta"], lookahead_distance,

@@ -30,7 +30,10 @@ top-level span, ``env.step`` for ``F110Env`` and ``make_env_fns`` users):
 (``scan.prepare`` > ``scan.select_windows``; ``scan.k1``), ``sim.noise``,
 ``sim.collision``, ``sim.ittc``, ``sim.opp_clip``, ``env.laps``; then
 ``vector.reset`` under ``vector.step``; ``vector.sort`` at top level.
-``sim.opp_clip`` records its extent.
+The planner's (``planning/pure_pursuit.py``): ``plan.step`` >
+``plan.nearest``, ``plan.lookahead``, ``plan.actuation``, at top level
+before the step it plans for. ``sim.opp_clip`` and ``plan.step`` record
+their extent.
 """
 
 from __future__ import annotations

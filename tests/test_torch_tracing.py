@@ -303,3 +303,90 @@ def test_span_readers_read_the_first_stretch(world):
     for name, value in want.items():
         assert _reader(name)(rec) == pytest.approx(value, rel=1e-12), name
         assert value > 0
+
+
+# the planner's spans (planning/pure_pursuit.py) with their parents
+PLAN_PARENTS = {"plan.step": None, "plan.nearest": "plan.step",
+                "plan.lookahead": "plan.step", "plan.actuation": "plan.step"}
+
+
+def _planned(world, steps, monkeypatch=None):
+    """``steps`` steps of the ring world's envs under the batched pure
+    pursuit, each env with its own gains, profiled on the CPU; with
+    ``monkeypatch``, the planner's spans off. (profile, cars planned)."""
+    from f1tenth_gym_tpu_torch.planning import PurePursuitPlanner
+    from f1tenth_gym_tpu_torch.planning import pure_pursuit as pp
+    from f1tenth_gym_tpu_torch.utils.waypoints import ring_waypoints
+
+    if monkeypatch is not None:
+        monkeypatch.setattr(pp, "annotate",
+                            lambda name, extent=False: profiling._OFF)
+    s, step, _ = _start(world)
+    planner = PurePursuitPlanner(ring_waypoints(4.0), device="cpu")
+    plan_step = planner.fused_plan_step(
+        step, torch.linspace(0.5, 2.0, E)[:, None],
+        torch.linspace(0.5, 1.5, E)[:, None])
+    cars = pp.pure_pursuit_plan.cars
+    with _cpu_profile() as prof:
+        for _ in range(steps):
+            s = plan_step(s)[0]
+    return prof, pp.pure_pursuit_plan.cars - cars
+
+
+def test_a_planned_step_records_the_planner_spans(world):
+    _, cars = _planned(world, 3)
+    assert cars == 3 * E * A
+    recs = profiling.TABLE.records
+    plan = [r for r in recs if r.name in PLAN_PARENTS]
+    assert len(plan) == 3 * len(PLAN_PARENTS)
+    for r in plan:
+        assert r.parent == PLAN_PARENTS[r.name], r.name
+        if r.name == "plan.step":   # top level, its extent its host time
+            assert r.root == r.seq
+            assert r.extent_ms == (r.host_end_ns - r.host_start_ns) / 1e6
+        else:
+            assert r.extent_ms is None
+    summary = profiling.span_summary("vector.step", 3)
+    for name in PLAN_PARENTS:
+        assert summary[name]["calls"] == 3, name
+    assert summary["plan.step"]["extent_ms"] > 0
+    assert summary["vector.step"]["calls"] == 3
+
+
+def test_the_planner_spans_add_no_op(world, monkeypatch):
+    """The same planned steps with the planner's spans on and off run the
+    same ops, each as often."""
+    def ops(prof):
+        spans = set(PARENTS) | set(PLAN_PARENTS)
+        return {e.key: e.count for e in prof.key_averages()
+                if e.key not in spans}
+
+    on, _ = _planned(world, 2)
+    assert {e.key for e in on.key_averages()} >= set(PLAN_PARENTS)
+    profiling.clear_spans()
+    off, _ = _planned(world, 2, monkeypatch)
+    assert not {e.key for e in off.key_averages()} & set(PLAN_PARENTS)
+    assert ops(on) == ops(off)
+
+
+def test_the_plan_span_records_events_on_the_card(world, monkeypatch):
+    """Once CUDA is in use ``plan.step`` records an event at each end, and
+    the planner's other spans none."""
+    from f1tenth_gym_tpu_torch.planning import pure_pursuit_plan
+    from f1tenth_gym_tpu_torch.utils.waypoints import ring_waypoints
+
+    table = SpanTable()
+    monkeypatch.setattr(profiling, "TABLE", table)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    _FakeEvent.made = 0
+    w = torch.as_tensor(ring_waypoints(4.0), dtype=torch.float32)
+    x = torch.tensor([4.0, 0.0, 1.0])
+    with _cpu_profile():
+        for _ in range(2):
+            pure_pursuit_plan(x, x.flip(0), x, w, 0.8, 1.0, 0.33)
+    assert _FakeEvent.made == 4
+    summary = profiling.span_summary("plan.step")
+    assert summary["plan.step"]["calls"] == 2
+    assert summary["plan.step"]["extent_ms"] is not None
+    assert summary["plan.nearest"]["extent_ms"] is None
