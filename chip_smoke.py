@@ -4,6 +4,14 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
+(On the card the auto-reset step replays a CUDA graph of itself, which
+calls none of the kernel wrappers whose ``launches`` count the host's own
+calls. So each launch count of a phase that runs that step is a count of
+the kernel's launches on the card by its name in a trace of the card
+(``tools.common.card_launches``), taken in steps or an iteration of its
+own after the timed ones, as tracing slows each replay, and in traces of
+at most TRACE_STEPS steps, as a longer one loses records.)
+
 1. build   — the CUDA scan, overlay and opponent clip kernels (nvcc,
              sm_90a) and the native host library (g++), all started
              together; each
@@ -38,7 +46,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              tables; 8 envs of CLIP_MANY_AGENTS, more opponents than one
              chunk of K3's shared memory), in float32 and float64: K3 ==
              its plain version bit for bit after each synchronised launch;
-             CLIP_PARITY_STEPS steps with K3 against the same steps
+             CLIP_PARITY_STEPS steps with K3 (the step's CUDA graph)
+             against the same steps of the eager step (``step.eager``)
              with the plain clip from the same state and noise, every
              state leaf bit for bit, one launch a step; K3's time at
              32,768 scans beside the plain version's, a copy of the scans
@@ -54,9 +63,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              and its segments engine passes the MSE bar against its march;
 8. main    — the bench racing step: 4096 envs x 2 agents x 1080 beams,
              auto-reset to each env's start grid, gap-follow policy,
-             locality re-sort every 16 steps; 16 warm-up + 256 timed steps;
-             one scan-kernel and one opponent-clip launch per step, no
-             overlay launch;
+             locality re-sort every 16 steps; 16 warm-up + 256 timed steps,
+             then 256 traced steps with one scan-kernel and one
+             opponent-clip launch per step and no overlay launch; every
+             one of the 512 steps a replay of the step's CUDA graph;
 9. timing  — times of the scan kernel (culled, full, and culled with its
              row skip off) and of the plain version at the main path's
              shapes, beside the bound recounted from the pairs that hit
@@ -70,9 +80,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              one-agent envs x 1080 beams, float32, engine "pallas", scan
              noise on, PPOConfig() widths (hidden 256, 64 pooled beams,
              32 rollout steps, 4 epochs x 4 minibatches); one warm-up and
-             PPO_ITERS timed iterations with one scan-kernel launch a
-             rollout step and none of the overlay, finite metrics, a
-             changed policy, scans in range; then the TrainState saved,
+             PPO_ITERS timed iterations, finite metrics; one traced
+             iteration with one scan-kernel launch a rollout step and
+             none of the overlay; a changed policy, scans in range; then the TrainState saved,
              loaded into a freshly built learner, and one more iteration
              from both: bit-identical parameters and env states;
 12. planner — pure pursuit: the 500-step closed loop of
@@ -81,7 +91,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              poses; then ``batched_policy`` on example_map's raceline
              through ``rollout(collect=False)``, PLAN_STEPS steps of the
              main path's 4096 x 2 x 1080 envs (its culled pack and start
-             poses, engine "kernel"), one scan-kernel launch a step;
+             poses, engine "kernel"), timed, then as many steps traced with
+             one scan-kernel launch a step;
 13. multi_track — the 16-track world of examples/domain_randomization.py
              (seed 0; its culling pack, neighborhood 2, 2.5 m tiles, windows
              capped at 64 groups, is built in a process of its own on the
@@ -99,12 +110,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 14. domain_randomization — the example's rollout through its own
              functions: 4096 envs x 2 agents x 1080 beams on the world,
              engine "pallas", auto-reset to the start grid, arc sort every
-             32 steps, gap-follow policy; 16 warm-up + 256 timed steps with
-             one scan-kernel launch a step and none of the overlay, dones,
-             scans in range, the distance from the start grid per track;
-             the kernel's time at this shape beside its bound; then its
-             --train learner: one warm-up and two timed PPO iterations with
-             32 launches each and finite metrics;
+             32 steps, gap-follow policy; 16 warm-up + 256 timed steps,
+             dones, then 256 traced steps with one scan-kernel launch a step
+             and none of the overlay, scans in range, the distance from the
+             start grid per track; the kernel's time at this shape beside
+             its bound; then its --train learner: one warm-up and two timed
+             PPO iterations with finite metrics, and a traced one with 32
+             launches;
 15. trackgen — examples/waypoint_follow on the track of seed 9 written by
              save_track (F110Env "auto", so the kernel): 500 pure-pursuit
              steps without a collision; then on
@@ -120,7 +132,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              steps unsharded, one K1 launch a step; PPO(mesh=make_mesh())
              at the ppo phase's configuration bit for bit equal to PPO()
              after one iteration and after SHARD_PPO_TURNS timed ones taken
-             in turns (plain, mesh, mesh, plain). Then RANKS ranks on the
+             in turns (plain, mesh, mesh, plain) and one more of each, the
+             mesh one traced with one K1 launch a rollout step. Then RANKS ranks on the
              one card over gloo (NCCL refuses two ranks on one device),
              spawned here: the main path's envs split between them,
              RANK_STEPS steps without scan noise, the stitched scans and
@@ -134,8 +147,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              (the main path's workload and gates on the card, then the
              weak-scaling stand-in over 1, 2, 4 and 8 gloo processes on
              the machine's CPU, whose rates say nothing about the card):
-             the keys of its line, its gates under 2.0, one K1 launch a
-             timed step;
+             the keys of its line, its gates under 2.0, every timed step a
+             replay of the step's graph and none a K1 launch by the host
+             (phase 8 counts a replay's kernels);
 18. tools  — the probes of f1tenth_gym_tpu_torch/tools in-process, at
              reduced reps and steps: ``kernel_phases`` (each masked output
              of K1 bit for bit its plain version on 8192 bench scans, and
@@ -161,8 +175,8 @@ launches (``kernel_ms``), printed beside the eager launches' time and the
 host's enqueue time a call, which is of the same order as the kernels.
 Then the ``kernels`` line (K1's entry carries its launches on each path:
 ``launches`` on the main path, and those of the later phases, among them
-``sharded_launches``, ``sharded_rank_launches``, ``bench_launches`` and
-``tools_launches``; K2's carries the probes' ``tools_launches``; K3's
+``sharded_launches``, ``sharded_rank_launches``, ``tools_launches``, and
+bench's timed steps, ``bench_graph_replays``; K2's carries the probes' ``tools_launches``; K3's
 carries its main-path ``launches`` and those of phase 4b's step parity
 run, ``parity_launches``),
 the card's name and power limit, and the result line. Exits non-zero without a result when no CUDA device is present.
@@ -182,6 +196,12 @@ import numpy as np
 import torch
 
 from f1tenth_gym_tpu_torch.bench import bench_poses as _bench_poses
+from f1tenth_gym_tpu_torch.tools.common import (
+    K1_NAME,
+    K2_NAME,
+    K3_NAME,
+    card_launches,
+)
 from f1tenth_gym_tpu_torch.ops.opp_clip_fuzz import (
     fuzz_opp_clip_inputs,
     opp_clip_tables,
@@ -229,6 +249,11 @@ SWEEP_STEPS = 512           # param_sweep: one chunk
 SHARD_STEPS = 64            # sharded racing steps at world size 1
 SHARD_PPO_TURNS = 4         # timed PPO iterations, plain and mesh in turn
 RANKS, RANK_STEPS = 2, 16   # ranks on the one card (gloo), their steps
+# Steps a trace of the card holds: the profiler keeps ~240,000 kernel
+# records before it drops whole buffers of them (256 replayed steps of the
+# main path, ~245,000 kernels, lost 1-4 steps' records in 3 of 5 traces on
+# an H100); 32 steps are ~30,500, counted exactly in every trace
+TRACE_STEPS = 32
 RANK_PPO_ATOL = 1e-5        # 2-rank PPO parameters vs one process (f32)
 RANK_TIMEOUT_S = 300.0
 TOOL_REPS, TOOL_TRACE_STEPS, TOOL_SV_STEPS = 20, 4, 8   # phase tools
@@ -244,6 +269,21 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "scan_mse_by_map",
               "ittc_collision_gate", "weak_scaling_retention_8shard",
               "weak_scaling_total_rates")
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def traced_steps(drive, s, steps):
+    """``drive(s, n)`` (its first output the states) for ``steps`` steps
+    from ``s``, traced in windows of at most TRACE_STEPS steps: (the last
+    window's output, K1's, K2's and K3's launches on the card summed over
+    the windows by ``card_launches``)."""
+    total = dict.fromkeys((K1_NAME, K2_NAME, K3_NAME), 0)
+    while steps:
+        n = min(TRACE_STEPS, steps)
+        out, counts = card_launches(lambda: drive(s, n))
+        s, steps = out[0], steps - n
+        for k, v in counts.items():
+            total[k] += v
+    return out, total
 
 
 def emit(phase, **kw):
@@ -507,14 +547,15 @@ def opp_clip_phase(m, tables, params, card_name):
                                   device=dev)
     sort_kw = grid_of(m)
 
-    def drive(s, n):
+    def drive(s, n, step=astep):
         for _ in range(n):
-            s = astep(s, gap_follow(s.scans))[0]
+            s = step(s, gap_follow(s.scans))[0]
         return s
 
     s = drive(P.sort_envs_for_locality(s, **sort_kw), CLIP_STEP - 1)
 
-    # the racing step's own inputs to the clip, at step CLIP_STEP
+    # the racing step's own inputs to the clip, at step CLIP_STEP (the
+    # eager step: a replay of the step's graph calls no Python)
     real = oc._opp_clip_cuda
     seen = {}
 
@@ -524,7 +565,7 @@ def opp_clip_phase(m, tables, params, card_name):
 
     oc._opp_clip_cuda = keep
     try:
-        s = drive(s, 1)
+        s = drive(s, 1, astep.eager)
     finally:
         oc._opp_clip_cuda = real
     x, scans, verts = seen["in"]
@@ -570,20 +611,19 @@ def opp_clip_phase(m, tables, params, card_name):
             fz = fuzz_opp_clip_inputs(CLIP_MANY_ENVS, agents, t, seed=agents)
             check(f"fuzz_{str(dt)[6:]}_A{agents}_B{BEAMS}_exact", *fz, t)
 
-    # the step with K3 against the same steps with the plain clip: the
-    # same states, bit for bit, and one launch a step
+    # the step with K3 (its graph's replays) against the same steps of the
+    # eager step with the plain clip: the same states, bit for bit, and
+    # one launch a step on the card, counted by kernel name
     start, g0 = s.map(torch.clone), gen.get_state()
-    before = oc.opp_clip.launches
-    s_k = drive(start, CLIP_PARITY_STEPS)
-    torch.cuda.synchronize()
-    parity_launches = oc.opp_clip.launches - before
+    s_k, n = card_launches(lambda: drive(start, CLIP_PARITY_STEPS))
+    parity_launches = n[K3_NAME]
     require(parity_launches == CLIP_PARITY_STEPS,
             f"opp_clip: {parity_launches} launches in {CLIP_PARITY_STEPS} "
             "steps")
     gen.set_state(g0)
     oc._opp_clip_cuda = oc.opp_clip_plain
     try:
-        s_p = drive(start, CLIP_PARITY_STEPS)
+        s_p = drive(start, CLIP_PARITY_STEPS, astep.eager)
     finally:
         oc._opp_clip_cuda = real
     torch.cuda.synchronize()
@@ -685,9 +725,8 @@ def scans_in_range(s, tables, label):
 
 def ppo_phase(dev, card_name):
     """The learner of train_ppo at examples/train_ppo.py's configuration
-    (module docstring, phase 11). Returns K1's launches in the timed
-    iterations."""
-    from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
+    (module docstring, phase 11). Returns K1's launches in the traced
+    iteration."""
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
     from f1tenth_gym_tpu_torch.state import SimState
     from f1tenth_gym_tpu_torch.train_ppo import make_learner
@@ -700,8 +739,6 @@ def ppo_phase(dev, card_name):
     ts, _ = ppo.train_step(ts)  # warm-up
     torch.cuda.synchronize()
     before = [p.detach().clone() for p in ts.net.parameters()]
-    sk.sweep.launches = 0
-    ok.overlay.launches = 0
     iters = []
     for _ in range(PPO_ITERS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -721,11 +758,12 @@ def ppo_phase(dev, card_name):
                           env_steps_per_s=PPO_ENVS * T / host_s,
                           rollout_ms=ev[0].elapsed_time(ev[1]),
                           update_ms=ev[1].elapsed_time(ev[2]), **met))
-    launches = sk.sweep.launches
-    require(launches == T * PPO_ITERS,
-            f"ppo: {launches} kernel launches in {PPO_ITERS} iterations of "
-            f"{T} steps")
-    require(ok.overlay.launches == 0, "ppo: the rollout launched the overlay")
+    # one more iteration, traced: the kernels' launches on the card
+    (ts, _), n = card_launches(lambda: ppo.train_step(ts))
+    launches, overlay_launches = n[K1_NAME], n[K2_NAME]
+    require(launches == T, f"ppo: {launches} kernel launches in a traced "
+            f"iteration of {T} steps")
+    require(overlay_launches == 0, "ppo: the rollout launched the overlay")
     require(any(not torch.equal(a, b) for a, b in
                 zip(before, ts.net.parameters())), "ppo: the policy is unchanged")
     scan_stats = scans_in_range(ts.env_states, ppo.tables, "ppo")
@@ -759,7 +797,7 @@ def ppo_phase(dev, card_name):
          rollout_steps=T, epochs=ppo.pc.epochs,
          minibatches=ppo.pc.minibatches, iterations=iters,
          env_steps_per_s=[i["env_steps_per_s"] for i in iters],
-         kernel_launches=launches, overlay_launches=ok.overlay.launches,
+         kernel_launches=launches, overlay_launches=overlay_launches,
          scans=scan_stats, k1_ms=k1, resume_bit_identical=True,
          map_seconds=map_s,
          seconds=time.time() - t_phase)
@@ -768,10 +806,9 @@ def ppo_phase(dev, card_name):
 
 def planner_phase(m, tables, poses, dev, card_name):
     """Pure pursuit on the card (module docstring, phase 12). Returns K1's
-    launches in the batched rollout."""
+    launches in the traced batched rollout."""
     import f1tenth_gym_tpu_torch as P
     from f1tenth_gym_tpu_torch.maps import map_path
-    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
     from f1tenth_gym_tpu_torch.parallel import rollout
     from f1tenth_gym_tpu_torch.planning import PurePursuitPlanner, pure_pursuit_plan
     from f1tenth_gym_tpu_torch.utils.waypoints import load_waypoints
@@ -827,12 +864,12 @@ def planner_phase(m, tables, poses, dev, card_name):
 
     states, _ = drive(states, 2)  # warm-up
     torch.cuda.synchronize()
-    sk.sweep.launches = 0
     t0 = time.perf_counter()
     s, (reward, dones) = drive(states, PLAN_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = sk.sweep.launches
+    _, n = traced_steps(drive, s, PLAN_STEPS)
+    launches = n[K1_NAME]
     require(launches == PLAN_STEPS,
             f"planner: {launches} kernel launches in {PLAN_STEPS} steps")
     require(bool(torch.isfinite(reward)), "planner: non-finite reward")
@@ -978,21 +1015,20 @@ def domain_randomization_phase(world, tables, card_name):
     """The example's rollout and PPO on the world (module docstring, phase
     14). Returns K1's entry additions for the kernels line."""
     from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
-    from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
 
     s, _, _ = dr.drive(world, world.states, WARMUP)
     torch.cuda.synchronize()
-    sk.sweep.launches = 0
-    ok.overlay.launches = 0
     t0 = time.time()
     s, dones, _ = dr.drive(world, s, STEPS)
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    launches, dones = sk.sweep.launches, int(dones)
+    dones = int(dones)
+    _, n = traced_steps(lambda s, k: dr.drive(world, s, k), s, STEPS)
+    launches, overlay_launches = n[K1_NAME], n[K2_NAME]
     require(launches == STEPS, f"domain_randomization: {launches} kernel "
             f"launches in {STEPS} steps")
-    require(ok.overlay.launches == 0,
+    require(overlay_launches == 0,
             "domain_randomization: the step launched the overlay")
     require(dones > 0, "domain_randomization: no env was done")
     scans = scans_in_range(s, tables, "domain_randomization")
@@ -1014,7 +1050,7 @@ def domain_randomization_phase(world, tables, card_name):
     emit("domain_randomization", card=card_name, envs=DR_ENVS, agents=AGENTS,
          beams=BEAMS, tracks=len(world.infos), steps=STEPS, seconds=elapsed,
          env_steps_per_s=DR_ENVS * STEPS / elapsed, dones=dones,
-         kernel_launches=launches, overlay_launches=ok.overlay.launches,
+         kernel_launches=launches, overlay_launches=overlay_launches,
          scans=scans, progress_per_track_m=progress, k1=t_k,
          k1_plain_ms=plain_ms, **bound,
          bound_share=bound["bound_ms"] / t_k["ms"],
@@ -1026,7 +1062,6 @@ def domain_randomization_phase(world, tables, card_name):
     T = ppo.pc.rollout_steps
     ts, _ = ppo.train_step(ts)   # warm-up
     torch.cuda.synchronize()
-    sk.sweep.launches = 0
     iters = []
     for _ in range(DR_PPO_ITERS):
         t0 = time.perf_counter()
@@ -1038,10 +1073,11 @@ def domain_randomization_phase(world, tables, card_name):
                 f"domain_randomization ppo: non-finite metrics {met}")
         iters.append(dict(seconds=host_s, env_steps_per_s=DR_ENVS * T / host_s,
                           **met))
-    ppo_launches = sk.sweep.launches
-    require(ppo_launches == T * DR_PPO_ITERS,
+    (ts, _), n = card_launches(lambda: ppo.train_step(ts))   # traced
+    ppo_launches = n[K1_NAME]
+    require(ppo_launches == T,
             f"domain_randomization ppo: {ppo_launches} kernel launches in "
-            f"{DR_PPO_ITERS} iterations of {T} steps")
+            f"a traced iteration of {T} steps")
     emit("domain_randomization_ppo", card=card_name, envs=DR_ENVS,
          agents=AGENTS, rollout_steps=T, iterations=iters,
          kernel_launches=ppo_launches,
@@ -1113,7 +1149,6 @@ def sharded_rank(rank, nprocs, port, device_type, ckpt):
     train_ppo's learner without scan noise; its K1 launches."""
     import f1tenth_gym_tpu_torch as P
     from f1tenth_gym_tpu_torch.maps import map_path
-    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
     from f1tenth_gym_tpu_torch.parallel import multihost
     from f1tenth_gym_tpu_torch.parallel.sharding import env_shard, local_device
     from f1tenth_gym_tpu_torch.state import SimState
@@ -1137,18 +1172,14 @@ def sharded_rank(rank, nprocs, port, device_type, ckpt):
     built, drive = main_path(m, tables, poses, sort_period=0,
                              scan_noise=False)
     states = multihost.host_local_states(lambda n: built, mesh, per_rank)
-    sk.sweep.launches = 0
-    s, _ = drive(states, RANK_STEPS)
-    torch.cuda.synchronize()
-    launches = sk.sweep.launches
+    (s, _), n = card_launches(lambda: drive(states, RANK_STEPS))
+    launches = n[K1_NAME]
     save_orbax(ckpt, s, mesh)
 
     ppo, ts = make_learner(PPO_MAP, PPO_ENVS, BEAMS, "pallas", mesh=mesh,
                            scan_noise=False)
-    sk.sweep.launches = 0
-    ts, metrics = ppo.train_step(ts)
-    torch.cuda.synchronize()
-    ppo_launches = sk.sweep.launches
+    (ts, metrics), n = card_launches(lambda: ppo.train_step(ts))
+    ppo_launches = n[K1_NAME]
     params = actor_critic_to_numpy(ts.net)  # whole: every rank calls it
     return dict(device=str(dev), rows=[rows.start, rows.stop],
                 states={f.name: getattr(s, f.name).cpu().numpy()
@@ -1161,9 +1192,9 @@ def sharded_rank(rank, nprocs, port, device_type, ckpt):
 
 def sharded_phase(m, tables, poses, dev, card_name):
     """The sharded path on the card (module docstring, phase 16). Returns
-    K1's launches on it: at world size 1 (the steps and the mesh
-    learner's timed iterations) and on each of the RANKS ranks."""
-    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+    K1's launches on it, counted on the card by kernel name: at world
+    size 1 (the steps and a traced iteration of the mesh learner) and on
+    each of the RANKS ranks."""
     from f1tenth_gym_tpu_torch.parallel import multihost
     from f1tenth_gym_tpu_torch.parallel.sharding import make_mesh, shard_states
     from f1tenth_gym_tpu_torch.state import SimState
@@ -1182,11 +1213,9 @@ def sharded_phase(m, tables, poses, dev, card_name):
                               scan_noise=False)
     local = shard_states(multihost.host_local_states(
         lambda n: states, mesh, ENVS), mesh)
-    torch.cuda.synchronize()
-    sk.sweep.launches = 0
-    s_sh, _ = drive(local, SHARD_STEPS)
-    torch.cuda.synchronize()
-    step_launches = sk.sweep.launches
+    drive(states, 2)   # the step's eager call and its graph's capture
+    (s_sh, _), n = traced_steps(drive, local, SHARD_STEPS)
+    step_launches = n[K1_NAME]
     require(step_launches == SHARD_STEPS, f"sharded: {step_launches} K1 "
             f"launches in {SHARD_STEPS} steps")
     s_ref, _ = drive(states, SHARD_STEPS)
@@ -1212,11 +1241,9 @@ def sharded_phase(m, tables, poses, dev, card_name):
 
     same("first iteration")
     times = {"plain": [], "mesh": []}
-    mesh_launches = 0
     for turn in range(SHARD_PPO_TURNS):
         kind = ("plain", "mesh", "mesh", "plain")[turn % 4]
         torch.cuda.synchronize()
-        sk.sweep.launches = 0
         t0 = time.perf_counter()
         if kind == "plain":
             ts_p, _ = ppo_p.train_step(ts_p)
@@ -1224,12 +1251,14 @@ def sharded_phase(m, tables, poses, dev, card_name):
             ts_m, _ = ppo_m.train_step(ts_m)
         torch.cuda.synchronize()
         times[kind].append(time.perf_counter() - t0)
-        if kind == "mesh":
-            mesh_launches += sk.sweep.launches
+    # one more iteration of each, the mesh learner's traced
+    (ts_m, _), n = card_launches(lambda: ppo_m.train_step(ts_m))
+    ts_p, _ = ppo_p.train_step(ts_p)
     same("after the timed turns")
     T = ppo_m.pc.rollout_steps
-    require(mesh_launches == T * len(times["mesh"]),
-            f"sharded ppo: {mesh_launches} K1 launches")
+    mesh_launches = n[K1_NAME]
+    require(mesh_launches == T, f"sharded ppo: {mesh_launches} K1 launches "
+            f"in a traced iteration of {T} steps")
     emit("sharded_world1", card=card_name, envs=ENVS, agents=AGENTS,
          beams=BEAMS, steps=SHARD_STEPS, kernel_launches=step_launches,
          steps_bit_identical=True, ppo_envs=PPO_ENVS, ppo_bit_identical=True,
@@ -1286,8 +1315,8 @@ def sharded_phase(m, tables, poses, dev, card_name):
 
 def bench_phase(card_name):
     """``python -m f1tenth_gym_tpu_torch.bench`` at its defaults on the
-    card (module docstring, phase 17). Returns K1's launches in its timed
-    steps."""
+    card (module docstring, phase 17). Returns the graph replays in its
+    timed steps."""
     t0 = time.time()
     proc = subprocess.run([sys.executable, "-m", "f1tenth_gym_tpu_torch.bench"],
                           cwd=ROOT, capture_output=True, text=True,
@@ -1304,13 +1333,17 @@ def bench_phase(card_name):
     note = [ln for ln in proc.stderr.splitlines() if ln.startswith("# envs=")]
     require(len(note) == 1, f"bench wrote no '# envs=' line:\n{proc.stderr}")
     launches = int(re.search(r"k1_launches=(\d+)", note[0]).group(1))
+    replays = int(re.search(r"graph_replays=(\d+)", note[0]).group(1))
     steps = int(re.search(r"steps=(\d+)", note[0]).group(1))
-    require(launches == steps, f"bench: {launches} K1 launches in {steps} "
-            "steps")
+    # every timed step a replay of the main path's graph, whose kernels
+    # phase 8 counts on the card; none launched K1 from the host
+    require(replays == steps and launches == 0,
+            f"bench: {replays} graph replays and {launches} K1 launches by "
+            f"the host in {steps} steps")
     emit("bench", card=card_name, line=line, note=note[0],
          weak_scaling_on="the card machine's CPU (gloo ranks), not the card",
-         kernel_launches=launches, seconds=seconds)
-    return launches
+         kernel_launches=launches, graph_replays=replays, seconds=seconds)
+    return replays
 
 
 def top_names(by_name, n=15, width=100):
@@ -1684,18 +1717,23 @@ def run(world_build, sweep_packs):
     states, drive = main_path(m_ex, tables, poses_ex)
     s, _ = drive(states, WARMUP)
     torch.cuda.synchronize()
-    sk.sweep.launches = 0
-    ok.overlay.launches = 0
-    oc.opp_clip.launches = 0
+    replays = P.make_autoreset_step.replays
     t0 = time.time()
     s, dones = drive(s, STEPS)
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    launches = sk.sweep.launches
     dones = int(dones)
+    # the kernels' launches on the card in STEPS more steps, by name in a
+    # trace of them (tracing slows each replay, so the timed steps are
+    # not traced)
+    (s, _), n = traced_steps(drive, s, STEPS)
+    replays = P.make_autoreset_step.replays - replays
+    require(replays == 2 * STEPS,
+            f"{replays} graph replays in {2 * STEPS} steps")
+    launches, overlay_launches, clip_launches = (
+        n[K1_NAME], n[K2_NAME], n[K3_NAME])
     require(launches == STEPS, f"{launches} kernel launches in {STEPS} steps")
-    require(ok.overlay.launches == 0, "the racing step launched the overlay")
-    clip_launches = oc.opp_clip.launches
+    require(overlay_launches == 0, "the racing step launched the overlay")
     require(clip_launches == STEPS,
             f"{clip_launches} opponent clip launches in {STEPS} steps")
     scan_stats = scans_in_range(s, tables, "main path")
@@ -1704,8 +1742,9 @@ def run(world_build, sweep_packs):
     rate = ENVS * STEPS / elapsed
     emit("main_path", envs=ENVS, agents=AGENTS, beams=BEAMS, steps=STEPS,
          seconds=elapsed, env_steps_per_s=rate, dones=dones,
-         kernel_launches=launches, overlay_launches=ok.overlay.launches,
-         opp_clip_launches=clip_launches, scans=scan_stats)
+         kernel_launches=launches, overlay_launches=overlay_launches,
+         opp_clip_launches=clip_launches, graph_replays=replays,
+         scans=scan_stats)
 
     # ---- 9. kernel timing at the main path's shapes, mid sort period
     s, _ = drive(s, SORT_PERIOD // 2)
@@ -1763,7 +1802,7 @@ def run(world_build, sweep_packs):
 
     # ---- 16. the sharded path; 17. the port's bench entry point
     k1_extra.update(sharded_phase(m_ex, tables, poses_ex, dev, card_name))
-    k1_extra["bench_launches"] = bench_phase(card_name)
+    k1_extra["bench_graph_replays"] = bench_phase(card_name)
 
     # ---- 18. the probes
     k1_extra["tools_launches"], overlay_entry["tools_launches"] = \

@@ -34,7 +34,9 @@ The last line of stdout is one JSON object: ``metric``, ``value``,
 ``bench.py:8-12``), ``scan_mse_by_map``, ``scan_mse_all_beams_by_map``,
 ``ittc_collision_gate``, ``weak_scaling_retention_8shard`` and
 ``weak_scaling_total_rates``; a ``#`` line on stderr gives the device,
-the elapsed seconds, the dones and the scan kernel's launches.
+the elapsed seconds, the dones, the scan kernel's launches by the host
+(``k1_launches``; none in a step that replays the step's CUDA graph) and
+the graph's replays (``graph_replays``).
 """
 
 from __future__ import annotations
@@ -313,11 +315,13 @@ def main():
         torch.cuda.synchronize()
     warm = time.time() - t0
     sk.sweep.launches = 0
+    replays = P.make_autoreset_step.replays
     t0 = time.time()
     s, dones = drive(s, num_steps)
     dones = int(dones)  # waits for the device
     elapsed = time.time() - t0
     launches = sk.sweep.launches
+    replays = P.make_autoreset_step.replays - replays
 
     rate = num_envs * num_steps / elapsed
     result.update(value=rate, unit="env-steps/s",
@@ -339,7 +343,8 @@ def main():
     print(f"# envs={num_envs} agents={num_agents} steps={num_steps} "
           f"beams={num_beams} engine={engine} device={name} "
           f"elapsed={elapsed:.3f}s warmup={warm:.1f}s dones={dones} "
-          f"k1_launches={launches}", file=sys.stderr, flush=True)
+          f"k1_launches={launches} graph_replays={replays}", file=sys.stderr,
+          flush=True)
     return result
 
 

@@ -4,20 +4,24 @@ Port of ``f1tenth_gym_tpu/parallel/vector.py`` (``batch_reset``,
 ``batch_step``, ``uniform_pose_sampler``, ``tile_snake_key``,
 ``sort_envs_for_locality``, ``make_autoreset_step``). The JAX package
 vmaps one env; here the env axis is explicit, so the batch functions are
-the env functions on a device the caller chose.
+the env functions on a device the caller chose. Where the JAX package
+jits the auto-reset step into one program, the port captures it on the
+card as one CUDA graph and replays it (``StepGraph``), so the host
+enqueues one graph a step in place of its ~950 small kernels.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from f1tenth_gym_tpu_torch.config import DEFAULT_SEED, SimConfig, resolve_device
 from f1tenth_gym_tpu_torch.core.env import env_reset, env_step, init_state
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables, SimState, VehicleParams
-from f1tenth_gym_tpu_torch.utils.profiling import annotate
+from f1tenth_gym_tpu_torch.utils.profiling import annotate, profiling_enabled
 
 
 def make_generator(device, seed: int = DEFAULT_SEED) -> torch.Generator:
@@ -232,6 +236,167 @@ def sort_envs_for_locality(states: SimState, tile_size: float = None,
     return (states, order) if return_order else states
 
 
+# The leaves of SimState that the step never reads: it writes each anew
+# (the scans, the collision flags and partners, the lap counts), so a replay
+# does not copy the caller's into the graph's inputs (the scans are 141.6 MB
+# at 16,384 x 2 x 1080).
+UNREAD_LEAVES = ("scans", "collisions", "collision_idx", "lap_counts")
+_ALIGN = 256   # bytes: where each output's memory starts in a replay's copy
+# Bytes: memory this large is copied out by a copy of its own, the rest by
+# one multi-tensor copy, which is slow on large tensors. At 16,384 x 2 x
+# 1080 on an H100 the two 141.6 MB scans copied on their own and the 22
+# other outputs' memories (at most 0.9 MB each) together take 0.212 ms; all
+# in one multi-tensor copy, 0.348 ms.
+_OWN_COPY = 1 << 24
+
+
+def _tensors(states: SimState, actions: torch.Tensor):
+    return [getattr(states, k) for k in states.__dataclass_fields__] + [
+        actions]
+
+
+def _signature(states: SimState, actions: torch.Tensor) -> tuple:
+    """What a graph is captured for: each leaf's and the actions' shape,
+    dtype and device (a replay copies the inputs in, whatever their
+    layout)."""
+    return tuple((t.shape, t.dtype, t.device)
+                 for t in _tensors(states, actions))
+
+
+def _graphable(states: SimState, actions: torch.Tensor) -> bool:
+    """Whether a graph may run this call: every input on the card, none
+    requiring grad."""
+    return all(t.is_cuda and not t.requires_grad
+               for t in _tensors(states, actions))
+
+
+def _grouped_copy(dsts, srcs):
+    """``dst.copy_(src)`` for each pair, as one multi-tensor copy a dtype
+    (a few launches in place of one a pair)."""
+    groups = {}
+    for d, s in zip(dsts, srcs):
+        group = groups.setdefault(d.dtype, ([], []))
+        group[0].append(d)
+        group[1].append(s)
+    for d, s in groups.values():
+        torch._foreach_copy_(d, s)
+
+
+def _flatten(out):
+    """The step's outputs (states, obs, reward, done, info) as torch's
+    pytree (leaves, spec), the states taken as a dict of their leaves."""
+    states, *rest = out
+    return tree_flatten(({k: getattr(states, k)
+                          for k in states.__dataclass_fields__}, rest))
+
+
+def _unflatten(leaves, spec):
+    states, rest = tree_unflatten(leaves, spec)
+    return (SimState(**states), *rest)
+
+
+class _View(NamedTuple):
+    """Where an output tensor lies in a replay's copy."""
+    dtype: torch.dtype
+    shape: tuple
+    stride: tuple
+    offset: int
+
+
+class OutputCopy:
+    """Fresh copies of the step's outputs ``out``, made anew by each
+    ``__call__``: the memory under its tensors is copied once into one new
+    buffer (memory of ``_OWN_COPY`` bytes or more, the scans, by a copy of
+    its own, the rest by one multi-tensor copy), and each tensor is rebuilt
+    there as the same view (shape, strides, offset), so outputs that
+    shared memory still share it and no later call writes over what an
+    earlier one returned. Leaves that are not tensors are kept."""
+
+    def __init__(self, out):
+        leaves, self.spec = _flatten(out)
+        bases, self.views, size = {}, [], 0
+        for t in leaves:
+            if not isinstance(t, torch.Tensor):
+                self.views.append(t)
+                continue
+            self.device = t.device
+            mem = t.untyped_storage()
+            if mem.data_ptr() not in bases:
+                src = torch.empty(0, dtype=torch.uint8,
+                                  device=t.device).set_(mem)
+                bases[mem.data_ptr()] = (size, src)
+                size += -(-mem.nbytes() // _ALIGN) * _ALIGN
+            start = bases[mem.data_ptr()][0]
+            self.views.append(_View(
+                t.dtype, tuple(t.shape), t.stride(),
+                start // t.element_size() + t.storage_offset()))
+        self.sources = list(bases.values())
+        self.nbytes = size
+
+    def __call__(self):
+        flat = torch.empty(self.nbytes, dtype=torch.uint8, device=self.device)
+        small = ([], [])
+        for a, src in self.sources:
+            dst = flat[a:a + src.numel()]
+            if src.numel() >= _OWN_COPY:
+                dst.copy_(src)
+            else:
+                small[0].append(dst)
+                small[1].append(src)
+        _grouped_copy(*small)
+        typed, leaves = {}, []
+        for v in self.views:
+            if isinstance(v, _View):
+                if v.dtype not in typed:
+                    typed[v.dtype] = flat.view(v.dtype)
+                v = typed[v.dtype].as_strided(v.shape, v.stride, v.offset)
+            leaves.append(v)
+        return _unflatten(leaves, self.spec)
+
+
+def _capture(graph, fn: Callable):
+    """``fn()`` captured into ``graph`` (on a side stream, as
+    ``torch.cuda.graph`` captures); returns its outputs, the memory each
+    replay writes."""
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        return fn()
+
+
+class StepGraph:
+    """``body(states, actions)`` captured once as a CUDA graph for the
+    signature of ``states`` and ``actions``, and replayed.
+
+    The inputs are copied into the graph's own (``UNREAD_LEAVES`` are not
+    copied: the body never reads them), and the outputs out of it into
+    fresh tensors (``OutputCopy``). ``generator`` is registered with the
+    graph, so a replay draws what an eager call would draw from its state
+    and advances it as an eager call would. A replay runs no Python of the
+    body: the kernel wrappers' ``launches`` count what the host launched
+    itself, and a replay's kernels are seen by their names in a trace of
+    the card."""
+
+    def __init__(self, body: Callable, states: SimState,
+                 actions: torch.Tensor, generator: torch.Generator):
+        self.inputs = states.map(torch.empty_like)
+        self.actions = torch.empty_like(actions)
+        self.copied = [k for k in states.__dataclass_fields__
+                       if k not in UNREAD_LEAVES]
+        self.targets = [getattr(self.inputs, k) for k in self.copied] + [
+            self.actions]
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        with torch.no_grad():
+            out = _capture(self.graph,
+                           lambda: body(self.inputs, self.actions))
+        self.output = OutputCopy(out)
+
+    def __call__(self, states: SimState, actions: torch.Tensor):
+        _grouped_copy(self.targets,
+                      [getattr(states, k) for k in self.copied] + [actions])
+        self.graph.replay()
+        return self.output()
+
+
 def make_autoreset_step(params: VehicleParams, map_data: MapData,
                         tables: ScanTables, cfg: SimConfig, timestep,
                         pose_sampler: Optional[Callable] = None,
@@ -249,6 +414,22 @@ def make_autoreset_step(params: VehicleParams, map_data: MapData,
     back to its own start grid, carried in the state). ``generator`` (one
     is made on ``device`` when omitted) draws the scan noise and the
     sampled poses.
+
+    On the card the step runs as a CUDA graph (``StepGraph``): the first
+    call of each signature (every leaf's and the actions' shape, dtype
+    and device) runs eagerly, so that the kernels are built and loaded;
+    the next one made while no profiler records captures a graph
+    of the step for that signature, and every later one replays it: the
+    same kernels in the same order on the same stream, the same bits, the
+    generator drawn and advanced as an eager step does, and outputs that
+    no later call overwrites. Calls on the CPU, with inputs that require
+    grad, or with the march scan engine (which syncs the host to stop)
+    run eagerly. Each signature's graph keeps its memory pool for the
+    step's life. ``step.eager`` is the eager step, the function the graph
+    captures; ``step.generator`` the generator. ``make_autoreset_step``'s
+    ``calls``, ``replays`` and ``captures`` count over every step it made.
+    A replay runs no Python of the step, so the kernel wrappers'
+    ``launches`` do not move; a trace of the card names its kernels.
     """
     n_modes = sum([pose_sampler is not None, reset_poses is not None,
                    bool(reset_to_start)])
@@ -264,7 +445,7 @@ def make_autoreset_step(params: VehicleParams, map_data: MapData,
     # on the card once, so that no step copies it there
     timestep = torch.as_tensor(timestep, dtype=cfg.torch_dtype, device=dev)
 
-    def step(states: SimState, actions: torch.Tensor):
+    def eager(states: SimState, actions: torch.Tensor):
         with annotate("vector.step"):
             states, obs, reward, done, info = batch_step(
                 states, actions, params, map_data, tables, cfg, timestep,
@@ -289,5 +470,33 @@ def make_autoreset_step(params: VehicleParams, map_data: MapData,
                     for k in states.__dataclass_fields__})
         return states, obs, reward, done, info
 
+    capturable = cfg.resolved_scan_engine(
+        dev, map_data.seg_table is not None) != "march"
+    graphs = {}   # signature -> its StepGraph; None after its eager call
+
+    def step(states: SimState, actions: torch.Tensor):
+        make_autoreset_step.calls += 1
+        if not (capturable and _graphable(states, actions)):
+            return eager(states, actions)
+        key = _signature(states, actions)
+        graph = graphs.get(key)
+        if graph is None:
+            if key not in graphs or profiling_enabled():
+                graphs[key] = None
+                return eager(states, actions)
+            graph = graphs[key] = StepGraph(eager, states, actions,
+                                            generator)
+            make_autoreset_step.captures += 1
+        with annotate("vector.step"):
+            out = graph(states, actions)
+        make_autoreset_step.replays += 1
+        return out
+
+    step.eager = eager
     step.generator = generator
     return step
+
+
+make_autoreset_step.calls = 0
+make_autoreset_step.replays = 0
+make_autoreset_step.captures = 0

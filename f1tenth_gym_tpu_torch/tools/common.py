@@ -6,7 +6,8 @@ is once:
 * ``bench_workload``: example_map (or another bundled map) culled at a
   tile size, and the bench sampler's poses in tile-snake order
   (``bench.bench_poses``); ``racing_step``: the auto-reset racing step of
-  those poses with the JAX probes' constant actions (no steer, 2 m/s);
+  those poses with the JAX probes' constant actions (no steer, 2 m/s), or
+  its eager body;
 * timers: ``fenced_ms`` (host clock, fenced by a synchronize),
   ``cuda_ms`` (CUDA events) and ``kernel_ms`` (a CUDA graph of launches,
   for kernels whose enqueue is of their own order);
@@ -14,7 +15,9 @@ is once:
   step by kernel name, their total and the busy share. K1 is launched
   through ctypes, so no ``record_function`` range covers it: it is found
   by its kernel name, ``scan_sweep_kernel`` (``K1_NAME``), as K3 is by
-  ``opp_clip_kernel`` (``K3_NAME``).
+  ``opp_clip_kernel`` (``K3_NAME``); ``card_launches`` counts the three
+  hand-written kernels' launches by those names, a CUDA graph's
+  included.
 """
 
 from __future__ import annotations
@@ -70,11 +73,14 @@ def bench_workload(ts: float, envs: int, num_beams: int = 1080, device=None,
     return m, tables, bench_poses(m, 7, envs, 2, **kw)
 
 
-def racing_step(m, tables, poses, scan_noise: bool = True):
+def racing_step(m, tables, poses, scan_noise: bool = True,
+                eager: bool = False):
     """The auto-reset racing step on ``poses`` (E, A, 3), float32, engine
     "kernel", each env reset to its own start grid, with the JAX probes'
-    actions (steer 0, speed 2 m/s). Returns (reset states, step: states ->
-    states, (params, cfg))."""
+    actions (steer 0, speed 2 m/s). ``eager``: its eager body
+    (``step.eager``), whose stages a profile sees; else the step as users
+    run it (a CUDA graph's replays on the card). Returns (reset states,
+    step: states -> states, (params, cfg))."""
     import f1tenth_gym_tpu_torch as P
 
     dev = m.device
@@ -91,9 +97,10 @@ def racing_step(m, tables, poses, scan_noise: bool = True):
                                   device=dev)
     actions = torch.zeros((E, A, 2), device=dev)
     actions[..., 1] = 2.0
+    run = astep.eager if eager else astep
 
     def step(s):
-        return astep(s, actions)[0]
+        return run(s, actions)[0]
 
     return states, step, (params, cfg)
 
@@ -227,6 +234,28 @@ def device_time_by_name(prof, steps: int) -> dict:
                 total_ms_per_step=total, wall_ms_per_step=wall,
                 busy_share=total / wall,
                 timeline="device" if on_card else "cpu ops")
+
+
+def card_launches(fn):
+    """``fn()`` under a trace of the card's activity alone: (its result,
+    {K1_NAME, K2_NAME, K3_NAME: that kernel's launches on the card}),
+    counted by kernel name. A replay of a CUDA graph launches its kernels
+    with no call to their Python wrappers, whose ``launches`` count only
+    the host's own calls; the trace sees both. Keep ``fn`` under ~240,000
+    kernels: the profiler then drops whole buffers of records (on an H100,
+    256 replayed racing steps at 4096 x 2 envs lost 1-4 steps' records in
+    3 of 5 traces)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    return out, {k: sum(k in n for n in names)
+                 for k in (K1_NAME, K2_NAME, K3_NAME)}
 
 
 def named(by_name: dict, part: str) -> dict:

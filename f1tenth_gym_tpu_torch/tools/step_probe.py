@@ -41,8 +41,9 @@ def _time(res, name, fn, reps, dev):
 def probe(envs: int = 4096, ts: float = 1.25,
           what=("scan", "overlay", "step"), num_beams: int = 1080,
           sub: int = sk.SUB, device=None) -> dict:
-    """The probe's times (module docstring) and the kernels' launches in
-    them (``k1_launches``, ``k2_launches``)."""
+    """The probe's times (module docstring) and the kernel wrappers'
+    launches in them (``k1_launches``, ``k2_launches``; a replay of the
+    step's CUDA graph calls no wrapper)."""
     import f1tenth_gym_tpu_torch as P
     from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
 

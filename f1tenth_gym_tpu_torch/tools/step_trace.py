@@ -14,6 +14,10 @@ on the card's timeline.
     python -m f1tenth_gym_tpu_torch.tools.step_trace single  # bench racing step
     python -m f1tenth_gym_tpu_torch.tools.step_trace multi   # 16-track domain-rand step
 
+Both profile the step's eager body (``step.eager``), whose stages the
+spans and the profiler see; users' steps on the card replay it as one CUDA
+graph (``parallel/vector.py``), which runs the same kernels without them.
+
 ``single``: the main path's auto-reset step, TRACE_ENVS (4096) envs x 2
 agents x 1080 beams on example_map culled at 1.25 m, the poses in
 tile-snake order, the JAX probe's actions (steer 0, 2 m/s). ``multi``: the
@@ -40,7 +44,7 @@ from f1tenth_gym_tpu_torch.utils import profiling
 def build_single(envs: int, num_beams: int, device=None):
     """(step, states, map) of the bench racing step."""
     m, tables, poses = common.bench_workload(1.25, envs, num_beams, device)
-    states, step, _ = common.racing_step(m, tables, poses)
+    states, step, _ = common.racing_step(m, tables, poses, eager=True)
     return step, states, m
 
 
@@ -54,7 +58,7 @@ def build_multi(envs: int, num_beams: int, tracks: int = 16, seed: int = 0,
     actions[..., 1] = 2.0
 
     def step(s):
-        return world.step(s, actions)[0]
+        return world.step.eager(s, actions)[0]
 
     return step, world.sort(world.states), world.map_data
 

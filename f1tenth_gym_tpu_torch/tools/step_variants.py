@@ -53,7 +53,8 @@ SAME_STEP = ("in eager torch there is no jit argument or constant: "
 def variants(keys=DEFAULT_KEYS, envs: int = 4096, steps: int = 64,
              num_beams: int = 1080, device=None) -> dict:
     """{key: {ms, event_ms (on the card), scans_per_s}} for ``keys``, and
-    ``k1_launches`` / ``k2_launches`` over all of them. Raises SystemExit
+    the kernel wrappers' ``k1_launches`` / ``k2_launches`` over all of them
+    (a replay of the step's CUDA graph calls no wrapper). Raises SystemExit
     on a key without a counterpart, or an unknown one."""
     import f1tenth_gym_tpu_torch as P
     from f1tenth_gym_tpu_torch.ops import collision as col_ops

@@ -25,7 +25,9 @@ Port of ``f1tenth_gym_tpu/utils/profiling.py``:
   ``key_averages()``.
 
 The step path's spans (one per stage; ``vector.step`` is a step's
-top-level span, ``env.step`` for ``F110Env`` and ``make_env_fns`` users):
+top-level span, ``env.step`` for ``F110Env`` and ``make_env_fns`` users;
+a replay of the auto-reset step's CUDA graph runs no Python, so it records
+``vector.step`` alone, around its copies and the replay):
 ``vector.step`` > ``env.step`` > ``sim.physics``, ``sim.scan`` >
 (``scan.prepare`` > ``scan.select_windows``; ``scan.k1``), ``sim.noise``,
 ``sim.collision``, ``sim.ittc``, ``sim.opp_clip``, ``env.laps``; then
@@ -171,6 +173,11 @@ class _Span:
 
 _OFF = contextlib.nullcontext()
 _profiler = torch.autograd.profiler
+
+
+def profiling_enabled() -> bool:
+    """Whether a ``torch.profiler`` records now (the spans' flag)."""
+    return _profiler._is_profiler_enabled
 
 
 def annotate(name: str, extent: bool = False):

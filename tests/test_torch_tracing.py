@@ -305,6 +305,58 @@ def test_span_readers_read_the_first_stretch(world):
         assert value > 0
 
 
+def test_step_graph_share_reads_the_counters(monkeypatch):
+    """``step_graph_share.race``: replays over calls of the auto-reset
+    steps, from the port's counters (a synthetic count)."""
+    from f1tenth_gym_tpu_torch.parallel import vector
+
+    read = _reader("step_graph_share.race")
+    monkeypatch.setattr(vector.make_autoreset_step, "calls", 1600)
+    monkeypatch.setattr(vector.make_autoreset_step, "replays", 1598)
+    assert read(dict(kind="race", steps=32)) == 1598 / 1600
+    assert read(dict(kind="train", steps=32)) is None
+
+
+@pytest.mark.parametrize("gone", ["calls", "replays", "no_calls"])
+def test_step_graph_share_reads_nothing_without_counters(monkeypatch, gone):
+    """None where the port has no counters (a step without a graph) or
+    made no step."""
+    from f1tenth_gym_tpu_torch.parallel import vector
+
+    f = vector.make_autoreset_step
+    if gone == "no_calls":
+        monkeypatch.setattr(f, "calls", 0)
+    else:
+        monkeypatch.delattr(f, gone)
+    assert _reader("step_graph_share.race")(dict(kind="race", steps=32)) \
+        is None
+
+
+def test_k3_ms_reads_the_kernel_by_name():
+    """``k3_ms.race``: K3's device seconds among the stretch's top device
+    operations (a synthetic breakdown, names cut as the harness cuts
+    them), in ms a step."""
+    read = _reader("k3_ms.race")
+    ops = [["void__anonymous_namespace_::scan_sweep_kernel_7__8__float", 0.0109],
+           ["void__anonymous_namespace_::opp_clip_kernel_float__true__fl", 0.0048],
+           ["void_at::native::elementwise_kernel_128__2__at::native::gpu", 0.0026]]
+    rec = dict(kind="race", steps=32, breakdown=dict(device_ops=ops))
+    assert read(rec) == pytest.approx(1e3 * 0.0048 / 32, rel=1e-12)
+
+
+@pytest.mark.parametrize("rec", [
+    dict(kind="race", steps=32, breakdown=dict(device_ops=[
+        ["void_at::native::elementwise_kernel_128__2__at::native::gpu",
+         0.01]])),                                       # no K3 among them
+    dict(kind="race", steps=32, breakdown=dict(device_ops=[])),
+    dict(kind="race", steps=0, breakdown=dict(device_ops=[
+        ["void__anonymous_namespace_::opp_clip_kernel_float", 0.01]])),
+    dict(kind="train", steps=32),
+])
+def test_k3_ms_reads_nothing_without_k3(rec):
+    assert _reader("k3_ms.race")(rec) is None
+
+
 # the planner's spans (planning/pure_pursuit.py) with their parents
 PLAN_PARENTS = {"plan.step": None, "plan.nearest": "plan.step",
                 "plan.lookahead": "plan.step", "plan.actuation": "plan.step"}
