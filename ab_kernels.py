@@ -12,7 +12,9 @@ from seeds: the bench racing step of ``chip_smoke.py`` (4096 envs x 2
 agents x 1080 beams on example_map with its 1.25 m culling pack) driven
 24 steps from the seed-7 start poses; K1 is timed culled and full on the
 poses reached, K2 on the scans reached, each scan clipped by the other
-agent's box. Times are those of ``chip_smoke.kernel_ms``: a CUDA graph of
+agent's box. Times are those of ``kernel_ms`` in this tree's
+``f1tenth_gym_tpu_torch/tools/common.py``, loaded by path as chip_smoke.py
+is, so that every turn times with the same code: a CUDA graph of
 launches, the eager launches, and the host's enqueue time. Every turn
 must give the same output bits (both trees' kernels equal their plain
 versions bit for bit). One JSON line a turn, then a summary line, then the
@@ -31,10 +33,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DRIVE_STEPS = 24
 
 
-def _this_chip_smoke():
-    """chip_smoke.py of this tree, whatever tree the package comes from."""
+def _this_tree(name, path):
+    """The module at ``path`` of this tree, whatever tree the package
+    comes from."""
     spec = importlib.util.spec_from_file_location(
-        "ab_chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+        name, os.path.join(HERE, path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -61,7 +64,9 @@ def child(tree):
     pkg = os.path.dirname(os.path.abspath(P.__file__))
     if os.path.dirname(pkg) != os.path.abspath(tree):
         raise SystemExit(f"ab_kernels: imported {pkg}, not from {tree}")
-    cs = _this_chip_smoke()
+    cs = _this_tree("ab_chip_smoke", "chip_smoke.py")
+    tc = _this_tree("ab_tools_common",
+                    "f1tenth_gym_tpu_torch/tools/common.py")
     dev = torch.device("cuda")
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         for f in [pool.submit(sk.build_cuda), pool.submit(ok.build_cuda)]:
@@ -80,7 +85,7 @@ def child(tree):
     w_f = sk.prepare_map(flat, m, tables, cs.BEAMS, cs.THETA_DIS,
                          culled=False)
     w_o = ok.prepare_overlay(s.scans.reshape(-1, cs.BEAMS), flat,
-                             cs.other_agent_boxes(pose, params).reshape(
+                             tc.other_agent_boxes(pose, params).reshape(
                                  -1, 1, 4, 2), tables, cs.BEAMS)
     out = dict(tree=tree, package=pkg, card=cs.card())
     for name, fn, iters in (("scan_culled", lambda: sk.sweep(w_c), 50),
@@ -88,7 +93,7 @@ def child(tree):
                             ("overlay", lambda: ok.overlay(w_o), 50)):
         res = fn()
         torch.cuda.synchronize()
-        out[name] = dict(cs.kernel_ms(fn, iters), sha1=_digest(res))
+        out[name] = dict(tc.kernel_ms(fn, iters), sha1=_digest(res))
     print(json.dumps(out), flush=True)
 
 

@@ -12,11 +12,12 @@ the kernel's launches on the card by its name in a trace of the card
 own after the timed ones, as tracing slows each replay, and in traces of
 at most TRACE_STEPS steps, as a longer one loses records.)
 
-1. build   — the CUDA scan, overlay and opponent clip kernels (nvcc,
-             sm_90a) and the native host library (g++), all started
-             together; each
-             kernel's registers, shared memory and spills, and its resident
-             blocks an SM and waves at the main path's shape;
+1. build   — every kernel of ``utils/cuda_build.KERNELS`` (nvcc, sm_90a:
+             the scan, overlay and opponent clip kernels) and the native
+             host library (g++), all started together; each kernel's
+             registers, shared memory and spills (its resident blocks an
+             SM and waves are printed by its own phase, at the shape the
+             phase times it);
 2. maps    — example_map culled at 1.25 m tiles, berlin and stata_basement
              culled at the default 2.5 m, compact with a split pack;
 3. kernel  — the scan kernel against its plain torch version on 8192 bench
@@ -182,6 +183,7 @@ run, ``parity_launches``),
 the card's name and power limit, and the result line. Exits non-zero without a result when no CUDA device is present.
 """
 
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -197,10 +199,10 @@ import torch
 
 from f1tenth_gym_tpu_torch.bench import bench_poses as _bench_poses
 from f1tenth_gym_tpu_torch.tools.common import (
-    K1_NAME,
-    K2_NAME,
-    K3_NAME,
     card_launches,
+    cuda_ms,
+    kernel_ms,
+    other_agent_boxes,
 )
 from f1tenth_gym_tpu_torch.ops.opp_clip_fuzz import (
     fuzz_opp_clip_inputs,
@@ -216,6 +218,7 @@ from f1tenth_gym_tpu_torch.bench import (
     ittc_collision_gate,
     main_path,
 )
+from f1tenth_gym_tpu_torch.utils import cuda_build
 
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3
@@ -271,18 +274,24 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "scan_mse_by_map",
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+def launches_on_card(fn):
+    """``fn()`` under ``card_launches``: (its result, {label: launches on
+    the card} of each declared kernel, ``utils/cuda_build.KERNELS``)."""
+    out, counts = card_launches(fn)
+    return out, {k.label: counts[k.trace_name] for k in cuda_build.KERNELS}
+
+
 def traced_steps(drive, s, steps):
     """``drive(s, n)`` (its first output the states) for ``steps`` steps
     from ``s``, traced in windows of at most TRACE_STEPS steps: (the last
-    window's output, K1's, K2's and K3's launches on the card summed over
-    the windows by ``card_launches``)."""
-    total = dict.fromkeys((K1_NAME, K2_NAME, K3_NAME), 0)
+    window's output, each kernel's launches on the card summed over the
+    windows, by label)."""
+    total = collections.Counter()
     while steps:
         n = min(TRACE_STEPS, steps)
-        out, counts = card_launches(lambda: drive(s, n))
+        out, counts = launches_on_card(lambda: drive(s, n))
         s, steps = out[0], steps - n
-        for k, v in counts.items():
-            total[k] += v
+        total.update(counts)
     return out, total
 
 
@@ -299,58 +308,6 @@ def bench_poses(m, seed, **kw):
     """(ENVS, AGENTS, 3) start poses of the bench sampler on the map's
     device, in tile-snake order (``bench.bench_poses``)."""
     return _bench_poses(m, seed, ENVS, AGENTS, **kw)
-
-
-# cuda_ms, kernel_ms and other_agent_boxes are tools/common.py's too: they
-# stay defined here because ab_kernels.py loads this module's helpers with
-# another tree's package, which may predate the tools
-def cuda_ms(fn, iters):
-    """Mean CUDA-event time of ``fn`` over ``iters`` calls, after three
-    warm-up calls."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def kernel_ms(fn, iters):
-    """A kernel wrapper's time three ways: ``ms``, the CUDA-event time a
-    launch of a CUDA graph of ``iters`` wrapper calls (the kernel alone:
-    no host work between launches); ``eager_ms``, the CUDA-event time a
-    call of ``iters`` calls made one after the other from Python; and
-    ``enqueue_us``, the host time a call takes to enqueue (checks, ctypes
-    call, output allocation). Where ``enqueue_us`` is not well under
-    ``ms``, ``eager_ms`` measures the host and ``ms`` is the kernel's."""
-    eager_ms = cuda_ms(fn, iters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    enqueue_us = (time.perf_counter() - t0) / iters * 1e6
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return dict(ms=start.elapsed_time(end) / iters, eager_ms=eager_ms,
-                enqueue_us=enqueue_us)
 
 
 def k1_bound(w, pairs):
@@ -385,15 +342,6 @@ def card():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     return smi.stdout.strip().splitlines()[0]
-
-
-def other_agent_boxes(poses, params):
-    """(E, 2, 3) poses -> (E, 2, 1, 4, 2): each agent's one opponent is
-    the other agent's box (tools/step_probe.py:93-103)."""
-    from f1tenth_gym_tpu_torch.ops import collision as col_ops
-
-    verts = col_ops.get_vertices(poses, params.length, params.width)
-    return verts.flip(1)[:, :, None]
 
 
 def fuzz_overlay_inputs(n, O, params, dev, seed=0):
@@ -615,8 +563,8 @@ def opp_clip_phase(m, tables, params, card_name):
     # eager step with the plain clip: the same states, bit for bit, and
     # one launch a step on the card, counted by kernel name
     start, g0 = s.map(torch.clone), gen.get_state()
-    s_k, n = card_launches(lambda: drive(start, CLIP_PARITY_STEPS))
-    parity_launches = n[K3_NAME]
+    s_k, n = launches_on_card(lambda: drive(start, CLIP_PARITY_STEPS))
+    parity_launches = n["K3"]
     require(parity_launches == CLIP_PARITY_STEPS,
             f"opp_clip: {parity_launches} launches in {CLIP_PARITY_STEPS} "
             "steps")
@@ -759,8 +707,8 @@ def ppo_phase(dev, card_name):
                           rollout_ms=ev[0].elapsed_time(ev[1]),
                           update_ms=ev[1].elapsed_time(ev[2]), **met))
     # one more iteration, traced: the kernels' launches on the card
-    (ts, _), n = card_launches(lambda: ppo.train_step(ts))
-    launches, overlay_launches = n[K1_NAME], n[K2_NAME]
+    (ts, _), n = launches_on_card(lambda: ppo.train_step(ts))
+    launches, overlay_launches = n["K1"], n["K2"]
     require(launches == T, f"ppo: {launches} kernel launches in a traced "
             f"iteration of {T} steps")
     require(overlay_launches == 0, "ppo: the rollout launched the overlay")
@@ -869,7 +817,7 @@ def planner_phase(m, tables, poses, dev, card_name):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     _, n = traced_steps(drive, s, PLAN_STEPS)
-    launches = n[K1_NAME]
+    launches = n["K1"]
     require(launches == PLAN_STEPS,
             f"planner: {launches} kernel launches in {PLAN_STEPS} steps")
     require(bool(torch.isfinite(reward)), "planner: non-finite reward")
@@ -1025,7 +973,7 @@ def domain_randomization_phase(world, tables, card_name):
     elapsed = time.time() - t0
     dones = int(dones)
     _, n = traced_steps(lambda s, k: dr.drive(world, s, k), s, STEPS)
-    launches, overlay_launches = n[K1_NAME], n[K2_NAME]
+    launches, overlay_launches = n["K1"], n["K2"]
     require(launches == STEPS, f"domain_randomization: {launches} kernel "
             f"launches in {STEPS} steps")
     require(overlay_launches == 0,
@@ -1073,8 +1021,8 @@ def domain_randomization_phase(world, tables, card_name):
                 f"domain_randomization ppo: non-finite metrics {met}")
         iters.append(dict(seconds=host_s, env_steps_per_s=DR_ENVS * T / host_s,
                           **met))
-    (ts, _), n = card_launches(lambda: ppo.train_step(ts))   # traced
-    ppo_launches = n[K1_NAME]
+    (ts, _), n = launches_on_card(lambda: ppo.train_step(ts))   # traced
+    ppo_launches = n["K1"]
     require(ppo_launches == T,
             f"domain_randomization ppo: {ppo_launches} kernel launches in "
             f"a traced iteration of {T} steps")
@@ -1172,14 +1120,14 @@ def sharded_rank(rank, nprocs, port, device_type, ckpt):
     built, drive = main_path(m, tables, poses, sort_period=0,
                              scan_noise=False)
     states = multihost.host_local_states(lambda n: built, mesh, per_rank)
-    (s, _), n = card_launches(lambda: drive(states, RANK_STEPS))
-    launches = n[K1_NAME]
+    (s, _), n = launches_on_card(lambda: drive(states, RANK_STEPS))
+    launches = n["K1"]
     save_orbax(ckpt, s, mesh)
 
     ppo, ts = make_learner(PPO_MAP, PPO_ENVS, BEAMS, "pallas", mesh=mesh,
                            scan_noise=False)
-    (ts, metrics), n = card_launches(lambda: ppo.train_step(ts))
-    ppo_launches = n[K1_NAME]
+    (ts, metrics), n = launches_on_card(lambda: ppo.train_step(ts))
+    ppo_launches = n["K1"]
     params = actor_critic_to_numpy(ts.net)  # whole: every rank calls it
     return dict(device=str(dev), rows=[rows.start, rows.stop],
                 states={f.name: getattr(s, f.name).cpu().numpy()
@@ -1215,7 +1163,7 @@ def sharded_phase(m, tables, poses, dev, card_name):
         lambda n: states, mesh, ENVS), mesh)
     drive(states, 2)   # the step's eager call and its graph's capture
     (s_sh, _), n = traced_steps(drive, local, SHARD_STEPS)
-    step_launches = n[K1_NAME]
+    step_launches = n["K1"]
     require(step_launches == SHARD_STEPS, f"sharded: {step_launches} K1 "
             f"launches in {SHARD_STEPS} steps")
     s_ref, _ = drive(states, SHARD_STEPS)
@@ -1252,11 +1200,11 @@ def sharded_phase(m, tables, poses, dev, card_name):
         torch.cuda.synchronize()
         times[kind].append(time.perf_counter() - t0)
     # one more iteration of each, the mesh learner's traced
-    (ts_m, _), n = card_launches(lambda: ppo_m.train_step(ts_m))
+    (ts_m, _), n = launches_on_card(lambda: ppo_m.train_step(ts_m))
     ts_p, _ = ppo_p.train_step(ts_p)
     same("after the timed turns")
     T = ppo_m.pc.rollout_steps
-    mesh_launches = n[K1_NAME]
+    mesh_launches = n["K1"]
     require(mesh_launches == T, f"sharded ppo: {mesh_launches} K1 launches "
             f"in a traced iteration of {T} steps")
     emit("sharded_world1", card=card_name, envs=ENVS, agents=AGENTS,
@@ -1361,7 +1309,6 @@ def tools_phase(dev, card_name, packs):
     from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
     from f1tenth_gym_tpu_torch.tools import (
-        common,
         culling_stats,
         kernel_phases,
         kernel_sweep,
@@ -1430,7 +1377,7 @@ def tools_phase(dev, card_name, packs):
         traces[kind] = dict(
             {k: v for k, v in t.items() if k != "by_name"},
             k1_rank=next(i for i, n in enumerate(names)
-                         if common.K1_NAME in n),
+                         if cuda_build.K1.trace_name in n),
             names=len(names), top=top_names(t["by_name"]))
         lap(f"step_trace_{kind}")
 
@@ -1495,8 +1442,6 @@ def run(world_build, sweep_packs):
     from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
     from f1tenth_gym_tpu_torch.maps import map_path
     from f1tenth_gym_tpu_torch.ops import lidar as lidar_ops
-    from f1tenth_gym_tpu_torch.ops import opp_clip_kernel as oc
-    from f1tenth_gym_tpu_torch.ops import overlay_kernel as ok
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
     from f1tenth_gym_tpu_torch.ops import segments as seg_ops
     from f1tenth_gym_tpu_torch.tools import common as tools_common
@@ -1507,35 +1452,30 @@ def run(world_build, sweep_packs):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 1. build: one nvcc per kernel and g++, side by side
+    # ---- 1. build: one nvcc per declared kernel and g++, side by side
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        f_scan = pool.submit(sk.build_cuda)
-        f_overlay = pool.submit(ok.build_cuda)
-        f_clip = pool.submit(oc.build_cuda)
+    kernels = cuda_build.KERNELS
+    with concurrent.futures.ThreadPoolExecutor(len(kernels) + 1) as pool:
         f_native = pool.submit(native.build)
-        ptxas = {"scan_kernel": f_scan.result(),
-                 "overlay_kernel": f_overlay.result(),
-                 "opp_clip_kernel": f_clip.result()}
+        builds = {k.stem: pool.submit(k.build) for k in kernels}
+        ptxas = {stem: f.result() for stem, f in builds.items()}
         f_native.result()
     build_s = time.time() - t0
+    report = {stem: [ln.strip() for ln in text.splitlines()
+                     if "registers" in ln or "spill" in ln]
+              for stem, text in ptxas.items()}
     # K1: one instantiation per (phase mask, subgroup size); the main
     # path's is the full mask at the default subgroup size
-    variants = sk.resources(ptxas["scan_kernel"])
+    variants = sk.resources(ptxas[sk.KERNEL.stem])
     prod = variants.get((sk.phase_mask(sk.FULL_PHASES), sk.SUB))
     require(prod is not None and len(variants) == 4 * len(sk.SUBS),
             f"scan kernel instantiations: {sorted(variants)}")
     require(all(v["spill_bytes"] == 0 for v in variants.values()),
             f"scan kernel spills: {variants}")
-    report = {"scan_kernel": prod, "scan_kernel_variants": {
-        f"phases={p},sub={q}": v for (p, q), v in sorted(variants.items())},
-        **{name: [ln.strip() for ln in ptxas[name].splitlines()
-                  if "registers" in ln or "spill" in ln]
-           for name in ("overlay_kernel", "opp_clip_kernel")}}
-    emit("build", seconds=build_s, ptxas=report, occupancy={
-        "scan_kernel": sk.occupancy(ENVS * AGENTS, BEAMS),
-        "overlay_kernel": ok.occupancy(ENVS * AGENTS, BEAMS),
-        "opp_clip_kernel": oc.occupancy(ENVS * AGENTS, AGENTS, BEAMS)})
+    report[sk.KERNEL.stem] = prod
+    report[f"{sk.KERNEL.stem}_variants"] = {
+        f"phases={p},sub={q}": v for (p, q), v in sorted(variants.items())}
+    emit("build", seconds=build_s, ptxas=report)
 
     # ---- 2. maps (tile packs are disk-cached under the package's _build/)
     def timed_load(name, **kw):
@@ -1731,7 +1671,7 @@ def run(world_build, sweep_packs):
     require(replays == 2 * STEPS,
             f"{replays} graph replays in {2 * STEPS} steps")
     launches, overlay_launches, clip_launches = (
-        n[K1_NAME], n[K2_NAME], n[K3_NAME])
+        n["K1"], n["K2"], n["K3"])
     require(launches == STEPS, f"{launches} kernel launches in {STEPS} steps")
     require(overlay_launches == 0, "the racing step launched the overlay")
     require(clip_launches == STEPS,

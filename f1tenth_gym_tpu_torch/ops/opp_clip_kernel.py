@@ -16,15 +16,12 @@ K3 replaces no TPU kernel: the JAX package clips with XLA ops in
 ``ops/overlay_kernel.py``) leaves out that pass's collinear fallback and
 rounds windows otherwise.
 
-The kernel is built with ``nvcc`` at its first launch into
-``f1tenth_gym_tpu_torch/_build/`` and bound with ``ctypes``; importing this
-module builds nothing.
+The kernel is declared in ``utils/cuda_build.py`` (``K3``), which builds
+it with ``nvcc`` at its first launch and binds it with ``ctypes``;
+importing this module builds nothing.
 """
 
 from __future__ import annotations
-
-import ctypes
-import os
 
 import torch
 
@@ -32,8 +29,6 @@ from f1tenth_gym_tpu_torch.ops import collision as col_ops
 from f1tenth_gym_tpu_torch.state import IX_X, IX_Y, IX_YAW, ScanTables
 from f1tenth_gym_tpu_torch.utils import cuda_build
 
-CUDA_SRC = os.path.join(cuda_build.CSRC_DIR, "opp_clip_kernel.cu")
-CUDA_SO = os.path.join(cuda_build.BUILD_DIR, "opp_clip_kernel.so")
 _DTYPES = (torch.float32, torch.float64)
 
 
@@ -54,30 +49,16 @@ def opp_clip_plain(x: torch.Tensor, scans: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# CUDA kernel: build, bind, launch
+# CUDA kernel: build, launch (declared in utils/cuda_build.py)
 # --------------------------------------------------------------------------
 
-_LIB = None
+KERNEL = cuda_build.K3
 
 
 def build_cuda() -> str:
     """Compile ``csrc/opp_clip_kernel.cu`` for sm_90a into ``_build/``;
     returns the compiler's resource report (``utils/cuda_build.py``)."""
-    return cuda_build.build(CUDA_SRC, CUDA_SO)
-
-
-def _load_cuda():
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load(CUDA_SRC, CUDA_SO)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.opp_clip.argtypes = [vp, vp, vp, vp, vp] + [ci] * 9 + [vp]
-        lib.opp_clip.restype = ci
-        cip = ctypes.POINTER(ci)
-        lib.opp_clip_occupancy.argtypes = [ci, ci, ci, ci, cip, cip]
-        lib.opp_clip_occupancy.restype = ci
-        _LIB = lib
-    return _LIB
+    return KERNEL.build()
 
 
 def _check_inputs(x, scans, vertices, tables):
@@ -116,15 +97,11 @@ def _opp_clip_cuda(x, scans, vertices, tables) -> torch.Tensor:
     f64 = scans.dtype == torch.float64
     vec = (B % (2 if f64 else 4) == 0
            and not (scans.data_ptr() | out.data_ptr()) % 16)
-    stream = torch.cuda.current_stream(scans.get_device()).cuda_stream
-    err = _load_cuda().opp_clip(
-        scans.data_ptr(), x.data_ptr(), vertices.data_ptr(),
+    KERNEL.launch(
+        scans.device, scans.data_ptr(), x.data_ptr(), vertices.data_ptr(),
         tables.scan_angles.data_ptr(), out.data_ptr(), scans.numel() // B,
         scans.shape[-2], B, x.shape[-1], IX_X, IX_Y, IX_YAW, int(f64),
-        int(vec), stream)
-    if err != 0:
-        raise RuntimeError(f"opponent clip kernel launch failed: CUDA error "
-                           f"{err}")
+        int(vec))
     opp_clip.launches += 1
     return out
 
@@ -134,16 +111,8 @@ def occupancy(n_scans: int, agents: int, num_beams: int,
     """K3's launch at this shape on the current card: resident blocks an
     SM, grid blocks, scans a block, and waves (grid over resident
     blocks)."""
-    grid, spb = ctypes.c_int(0), ctypes.c_int(0)
-    per_sm = _load_cuda().opp_clip_occupancy(
-        int(dtype == torch.float64), n_scans, agents, num_beams,
-        ctypes.byref(grid), ctypes.byref(spb))
-    if per_sm <= 0:
-        raise RuntimeError("opponent clip kernel occupancy query failed")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dict(blocks_per_sm=per_sm, grid_blocks=grid.value,
-                scans_per_block=spb.value,
-                waves=grid.value / (per_sm * sms))
+    return KERNEL.occupancy(int(dtype == torch.float64), n_scans, agents,
+                            num_beams)
 
 
 def opp_clip(x: torch.Tensor, scans: torch.Tensor, vertices: torch.Tensor,

@@ -24,16 +24,14 @@ One call is three steps:
   raises);
 * ``overlay_opponents`` chains the two and restores the batch shape.
 
-The kernel is built with ``nvcc`` at its first launch into
-``f1tenth_gym_tpu_torch/_build/`` and bound with ``ctypes``; importing this
-module builds nothing.
+The kernel is declared in ``utils/cuda_build.py`` (``K2``), which builds
+it with ``nvcc`` at its first launch and binds it with ``ctypes``;
+importing this module builds nothing.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import os
 
 import numpy as np
 import torch
@@ -41,10 +39,6 @@ import torch
 from f1tenth_gym_tpu_torch.config import resolve_device
 from f1tenth_gym_tpu_torch.state import ScanTables
 from f1tenth_gym_tpu_torch.utils import cuda_build
-
-CUDA_SRC = os.path.join(cuda_build.CSRC_DIR, "overlay_kernel.cu")
-CUDA_SO = os.path.join(cuda_build.BUILD_DIR, "overlay_kernel.so")
-
 
 @dataclasses.dataclass
 class OverlayInputs:
@@ -165,29 +159,16 @@ def overlay_plain(w: OverlayInputs) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# CUDA kernel: build, bind, launch
+# CUDA kernel: build, launch (declared in utils/cuda_build.py)
 # --------------------------------------------------------------------------
 
-_LIB = None
+KERNEL = cuda_build.K2
 
 
 def build_cuda() -> str:
     """Compile ``csrc/overlay_kernel.cu`` for sm_90a into ``_build/``;
     returns the compiler's resource report (``utils/cuda_build.py``)."""
-    return cuda_build.build(CUDA_SRC, CUDA_SO)
-
-
-def _load_cuda():
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load(CUDA_SRC, CUDA_SO)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.overlay_clip.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.overlay_clip.restype = ci
-        lib.overlay_clip_occupancy.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        lib.overlay_clip_occupancy.restype = ci
-        _LIB = lib
-    return _LIB
+    return KERNEL.build()
 
 
 def _check_cuda_inputs(w: OverlayInputs):
@@ -213,15 +194,10 @@ def _overlay_cuda(w: OverlayInputs) -> torch.Tensor:
     out = torch.empty_like(w.scans)
     if n == 0:
         return out
-    lib = _load_cuda()
-    stream = torch.cuda.current_stream(w.scans.device).cuda_stream
     vec4 = B % 4 == 0 and not (w.scans.data_ptr() | out.data_ptr()) % 16
-    err = lib.overlay_clip(w.scans.data_ptr(), w.rows.data_ptr(),
-                           w.scal.data_ptr(), w.fan.data_ptr(),
-                           out.data_ptr(), n, B, w.rows.shape[1], int(vec4),
-                           stream)
-    if err != 0:
-        raise RuntimeError(f"overlay kernel launch failed: CUDA error {err}")
+    KERNEL.launch(w.scans.device, w.scans.data_ptr(), w.rows.data_ptr(),
+                  w.scal.data_ptr(), w.fan.data_ptr(), out.data_ptr(), n, B,
+                  w.rows.shape[1], int(vec4))
     overlay.launches += 1
     return out
 
@@ -229,14 +205,7 @@ def _overlay_cuda(w: OverlayInputs) -> torch.Tensor:
 def occupancy(n_scans: int, num_beams: int) -> dict:
     """The kernel's launch at this shape on the current card: resident
     blocks an SM, grid blocks, and waves (grid over resident blocks)."""
-    grid = ctypes.c_int(0)
-    per_sm = _load_cuda().overlay_clip_occupancy(n_scans, num_beams,
-                                                 ctypes.byref(grid))
-    if per_sm <= 0:
-        raise RuntimeError("overlay kernel occupancy query failed")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dict(blocks_per_sm=per_sm, grid_blocks=grid.value,
-                waves=grid.value / (per_sm * sms))
+    return KERNEL.occupancy(n_scans, num_beams)
 
 
 def overlay(w: OverlayInputs) -> torch.Tensor:

@@ -39,16 +39,14 @@ warp's beam chunk. ``skip_keep`` transcribes its keep test in plain torch,
 swept, kept and hitting pairs and ``rows_read`` the table rows the sweep
 reads: tests and measurements use them, the main path does not.
 
-The kernel is built with ``nvcc`` at its first launch into
-``f1tenth_gym_tpu_torch/_build/`` and bound with ``ctypes``; importing this
-module builds nothing.
+The kernel is declared in ``utils/cuda_build.py`` (``K1``), which builds
+it with ``nvcc`` at its first launch and binds it with ``ctypes``;
+importing this module builds nothing.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import os
 import re
 from typing import Optional
 
@@ -73,9 +71,6 @@ MAX_WARPS = 16      # beam chunks a block (the kernel's kMaxWarps)
 # the phase mask's bits (the kernel's kDirs, kSweep, kOut)
 PHASE_BITS = {"dirs": 1, "sweep": 2, "out": 4}
 FULL_PHASES = "dirs,sweep,out"
-
-CUDA_SRC = os.path.join(cuda_build.CSRC_DIR, "scan_kernel.cu")
-CUDA_SO = os.path.join(cuda_build.BUILD_DIR, "scan_kernel.so")
 
 
 def build_seg_table(segments: np.ndarray) -> np.ndarray:
@@ -556,24 +551,25 @@ def pair_counts(w: SweepInputs, chunk: int = CHUNK) -> dict:
 
 
 # --------------------------------------------------------------------------
-# CUDA kernel: build, bind, launch
+# CUDA kernel: build, launch (declared in utils/cuda_build.py)
 # --------------------------------------------------------------------------
 
-_LIB = None
+KERNEL = cuda_build.K1
 
 
 def build_cuda() -> str:
     """Compile ``csrc/scan_kernel.cu`` for sm_90a into ``_build/``; returns
     the compiler's resource report (``utils/cuda_build.py``)."""
-    return cuda_build.build(CUDA_SRC, CUDA_SO)
+    return KERNEL.build()
 
 
 def resources(report: str) -> dict:
     """{(phase bits, sub): {registers, smem_bytes, spill_bytes}} of each
     kernel instantiation in ``build_cuda``'s report."""
     out, key = {}, None
+    inst = re.compile(re.escape(KERNEL.trace_name) + r"ILi(\d+)ELi(\d+)E")
     for line in report.splitlines():
-        m = re.search(r"scan_sweep_kernelILi(\d+)ELi(\d+)E", line)
+        m = inst.search(line)
         if "Compiling entry function" in line:
             key = (int(m.group(1)), int(m.group(2))) if m else None
         elif key is not None and "spill stores" in line:
@@ -585,22 +581,6 @@ def resources(report: str) -> dict:
             smem = re.search(r"(\d+) bytes smem", line)
             out[key]["smem_bytes"] = int(smem.group(1)) if smem else 0
     return out
-
-
-def _load_cuda():
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load(CUDA_SRC, CUDA_SO)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.scan_sweep.argtypes = [vp, vp, vp, vp, ci, vp, vp, vp, vp, ci,
-                                   vp, ci, ci, cf, cf, ci, ci, ci, cf, cf,
-                                   cf, cf, ci, ci, vp]
-        lib.scan_sweep.restype = ci
-        lib.scan_sweep_occupancy.argtypes = [ci, ci, ci, ci, ci, ci,
-                                             ctypes.POINTER(ci)]
-        lib.scan_sweep_occupancy.restype = ci
-        _LIB = lib
-    return _LIB
 
 
 def _check_cuda_inputs(w: SweepInputs):
@@ -656,21 +636,17 @@ def _sweep_cuda(w: SweepInputs, skip: bool = True,
     skip saves."""
     mask = phase_mask(phases)
     _check_cuda_inputs(w)
-    lib = _load_cuda()
     n_pad, B = w.scal.shape[0], w.num_beams
     chunk, warps, _ = launch_shape(B, chunk, warps)
     out = torch.empty((n_pad, B), dtype=torch.float32, device=w.scal.device)
-    stream = torch.cuda.current_stream(w.scal.device).cuda_stream
-    err = lib.scan_sweep(
-        w.scal.data_ptr(), w.fan.data_ptr(), w.full.data_ptr(),
-        w.tabs.data_ptr(), w.tabs.shape[1], w.bid.data_ptr(),
-        w.ng.data_ptr(), w.est.data_ptr(), w.ecnt.data_ptr(),
-        int(w.has_extras), out.data_ptr(), n_pad, B, w.inv_td,
-        w.bin_to_rad, chunk, warps, int(skip), _f32(SKIP_EPS),
+    KERNEL.launch(
+        w.scal.device, w.scal.data_ptr(), w.fan.data_ptr(),
+        w.full.data_ptr(), w.tabs.data_ptr(), w.tabs.shape[1],
+        w.bid.data_ptr(), w.ng.data_ptr(), w.est.data_ptr(),
+        w.ecnt.data_ptr(), int(w.has_extras), out.data_ptr(), n_pad, B,
+        w.inv_td, w.bin_to_rad, chunk, warps, int(skip), _f32(SKIP_EPS),
         _f32(SKIP_RATIO ** -2), _f32(np.cos(SKIP_DELTA)),
-        _f32(np.sin(SKIP_DELTA)), mask, w.sub, stream)
-    if err != 0:
-        raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
+        _f32(np.sin(SKIP_DELTA)), mask, w.sub)
     sweep.launches += 1
     return out
 
@@ -681,15 +657,8 @@ def occupancy(n_scans: int, num_beams: int, chunk: Optional[int] = None,
     """The kernel's launch at this shape on the current card: resident
     blocks an SM, grid blocks, and waves (grid over resident blocks)."""
     chunk, warps, _ = launch_shape(num_beams, chunk, warps)
-    grid = ctypes.c_int(0)
-    per_sm = _load_cuda().scan_sweep_occupancy(
-        n_scans, num_beams, chunk, warps, phase_mask(phases), sub,
-        ctypes.byref(grid))
-    if per_sm <= 0:
-        raise RuntimeError("scan kernel occupancy query failed")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dict(threads_per_block=32 * warps, blocks_per_sm=per_sm,
-                grid_blocks=grid.value, waves=grid.value / (per_sm * sms))
+    return dict(threads_per_block=32 * warps, **KERNEL.occupancy(
+        n_scans, num_beams, chunk, warps, phase_mask(phases), sub))
 
 
 def sweep(w: SweepInputs, chunk: Optional[int] = None,

@@ -12,11 +12,11 @@ is once:
   ``cuda_ms`` (CUDA events) and ``kernel_ms`` (a CUDA graph of launches,
   for kernels whose enqueue is of their own order);
 * ``device_time_by_name``: a ``torch.profiler`` result as device ms a
-  step by kernel name, their total and the busy share. K1 is launched
-  through ctypes, so no ``record_function`` range covers it: it is found
-  by its kernel name, ``scan_sweep_kernel`` (``K1_NAME``), as K3 is by
-  ``opp_clip_kernel`` (``K3_NAME``); ``card_launches`` counts the three
-  hand-written kernels' launches by those names, a CUDA graph's
+  step by kernel name, their total and the busy share. The hand-written
+  kernels are launched through ctypes, so no ``record_function`` range
+  covers them: each is found by the name of its ``__global__`` function,
+  its declaration's ``trace_name`` (``utils/cuda_build.KERNELS``);
+  ``card_launches`` counts their launches by those names, a CUDA graph's
   included.
 """
 
@@ -28,13 +28,11 @@ import torch
 
 from f1tenth_gym_tpu_torch.bench import bench_poses
 from f1tenth_gym_tpu_torch.config import resolve_device
+from f1tenth_gym_tpu_torch.utils import cuda_build
 
 THETA_DIS = 2000
 LEAK_CAP = 1e-6   # vertex-leak beams allowed between two sweeps, a share
                   # of the beams (chip_smoke.py's rule on split packs)
-K1_NAME = "scan_sweep_kernel"
-K2_NAME = "overlay_kernel"
-K3_NAME = "opp_clip_kernel"
 EXAMPLE_SEED_XY = (0.7, 0.0)   # the corridor of example_map's start pose
 
 
@@ -238,7 +236,7 @@ def device_time_by_name(prof, steps: int) -> dict:
 
 def card_launches(fn):
     """``fn()`` under a trace of the card's activity alone: (its result,
-    {K1_NAME, K2_NAME, K3_NAME: that kernel's launches on the card}),
+    {each declared kernel's ``trace_name``: its launches on the card}),
     counted by kernel name. A replay of a CUDA graph launches its kernels
     with no call to their Python wrappers, whose ``launches`` count only
     the host's own calls; the trace sees both. Keep ``fn`` under ~240,000
@@ -254,13 +252,13 @@ def card_launches(fn):
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False)]
-    return out, {k: sum(k in n for n in names)
-                 for k in (K1_NAME, K2_NAME, K3_NAME)}
+    return out, {k.trace_name: sum(k.trace_name in n for n in names)
+                 for k in cuda_build.KERNELS}
 
 
 def named(by_name: dict, part: str) -> dict:
     """The summed ``device_time_by_name`` entries whose name holds
-    ``part`` (a kernel's name: K1_NAME, K2_NAME, K3_NAME)."""
+    ``part`` (a kernel's ``trace_name``)."""
     hits = [v for k, v in by_name.items() if part in k]
     return dict(ms_per_step=sum(v["ms_per_step"] for v in hits),
                 calls_per_step=sum(v["calls_per_step"] for v in hits))

@@ -3,9 +3,10 @@
 Port of ``tools/step_trace.py``. Runs TRACE_STEPS steps of the chosen
 workload under the profiler (CPU and CUDA activity on the card) and prints
 the top 15 names by device ms a step, their total, the busy share (device
-time over the profiled wall time) and the launches a step of K1 and K3,
-found by their kernel names (``scan_sweep_kernel``, ``opp_clip_kernel``:
-a ctypes launch has no profiler range of its own); then the port's spans
+time over the profiled wall time) and the time and launches a step of each
+hand-written kernel the step launches (K1 and K3), found by its
+declaration's kernel name (``utils/cuda_build.KERNELS``: a ctypes launch
+has no profiler range of its own); then the port's spans
 (``utils/profiling.annotate``) a step: calls, host ms, host self ms, the
 card's time in the kernels each span launched (from the profile, its
 child spans' kernels included) and, for spans that record it, the extent
@@ -38,7 +39,7 @@ import torch
 
 from f1tenth_gym_tpu_torch.config import resolve_device
 from f1tenth_gym_tpu_torch.tools import common
-from f1tenth_gym_tpu_torch.utils import profiling
+from f1tenth_gym_tpu_torch.utils import cuda_build, profiling
 
 
 def build_single(envs: int, num_beams: int, device=None):
@@ -67,12 +68,12 @@ def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
           num_beams: int = 1080, tracks: int = 16, seed: int = 0,
           device=None) -> dict:
     """Profile ``steps`` steps of workload ``kind``; returns
-    ``common.device_time_by_name``'s dict with ``k1`` and ``k3`` (K1's
-    and K3's ms and launches a step, from the profile),
-    ``k1_wrapper_launches`` and ``k3_wrapper_launches`` (the wrappers'
-    counts over the profiled steps) and ``spans`` (the port's
-    spans a step: {name: {calls, host_ms, host_self_ms, extent_ms,
-    kernel_ms}})."""
+    ``common.device_time_by_name``'s dict with, under its label (``k1``,
+    ``k3``), the ms and launches a step in the profile of each declared
+    kernel the step launches; ``k1_wrapper_launches`` and
+    ``k3_wrapper_launches`` (the wrappers' counts over the profiled
+    steps) and ``spans`` (the port's spans a step: {name: {calls,
+    host_ms, host_self_ms, extent_ms, kernel_ms}})."""
     from f1tenth_gym_tpu_torch.ops import opp_clip_kernel as oc
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
 
@@ -99,19 +100,22 @@ def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
              for name, d in profiling.span_summary("vector.step").items()}
     for name, ms in span_kernel_ms(prof, spans).items():
         spans[name]["kernel_ms"] = ms / steps
-    # the profiler links the ctypes launches of K1 and K3 to no range:
-    # each one's time, found by name, goes to the span that launches it
-    # and the spans around that
-    k1 = common.named(t["by_name"], common.K1_NAME)
-    k3 = common.named(t["by_name"], common.K3_NAME)
+    # the profiler links the kernels' ctypes launches to no range: each
+    # one's time, found by name, goes to the span that launches it and the
+    # spans around that
+    kernels = {}
     up = {r.name: r.parent for r in profiling.TABLE.records}
-    for name, k in (("scan.k1", k1), ("sim.opp_clip", k3)):
+    for kern in cuda_build.KERNELS:
+        if kern.span is None:
+            continue
+        k = kernels[kern.label.lower()] = common.named(t["by_name"],
+                                                       kern.trace_name)
+        name = kern.span
         while name in spans:
             spans[name]["kernel_ms"] += k["ms_per_step"]
             name = up[name]
     return dict(kind=kind, envs=envs, agents=2, beams=num_beams, steps=steps,
-                device=common.device_name(dev), **t,
-                k1=k1, k3=k3,
+                device=common.device_name(dev), **t, **kernels,
                 k1_wrapper_launches=sk.sweep.launches - before,
                 k3_wrapper_launches=oc.opp_clip.launches - before_k3,
                 spans=spans)

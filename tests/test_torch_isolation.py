@@ -1,8 +1,7 @@
 """PyTorch port: it imports neither JAX nor the JAX package.
 
-A machine with a GPU need not have JAX, so the port, chip_smoke.py and
-profile_step.py must run without it; only the port's tests import JAX, as
-the oracle.
+A machine with a GPU need not have JAX, so the port and chip_smoke.py must
+run without it; only the port's tests import JAX, as the oracle.
 """
 
 import os
@@ -27,8 +26,7 @@ def _one_thread():
 
 
 def _port_files():
-    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py",
-                                              "profile_step.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files

@@ -452,6 +452,7 @@ def test_graph_behaviour_on_card():
     counted by kernel name in a trace of the card, while the wrappers'
     counters stand still; the counters add up."""
     from f1tenth_gym_tpu_torch.tools import common
+    from f1tenth_gym_tpu_torch.utils.cuda_build import K1, K2, K3
 
     s, step, _, actions = _card_world("example_map")
     gen = step.generator
@@ -464,8 +465,7 @@ def test_graph_behaviour_on_card():
     launches = launch_counts()
     g0 = gen.get_state()
     nxt, on_card = common.card_launches(lambda: step(out[0], a))   # replay
-    assert on_card == {common.K1_NAME: 1, common.K2_NAME: 0,
-                       common.K3_NAME: 1}
+    assert on_card == {K1.trace_name: 1, K2.trace_name: 0, K3.trace_name: 1}
     assert launch_counts() == launches
     for k in kept[0].__dataclass_fields__:
         assert same_bits(getattr(out[0], k), getattr(kept[0], k)), k
