@@ -100,10 +100,12 @@ at most TRACE_STEPS steps, as a longer one loses records.)
              CPU from the start of the run, and its seconds printed): the
              scan kernel against its plain version bit for bit, culled and
              full, on the sampler's 8192 poses after the arc sort, culled ==
-             full except on vertex leaks (at most LEAK_CAP), no hit pair
-             dropped by the row skip; the share of subgroups that fall back
-             to the full table under the arc sort, the square-block sort and
-             none; tracks 0 and 15 from three racing-line poses, in the world
+             full bit for bit (each corridor certified on its own), no hit
+             pair dropped by the row skip; the share of subgroups that fall
+             back to the full table under the arc sort, the square-block
+             sort and none; at the benchmark's batch (DR_BENCH_ENVS start
+             grids, arc sort) culled == full bit for bit and the share of
+             subgroups on a culled window; tracks 0 and 15 from three racing-line poses, in the world
              and on the track's own map: the marching engine within 0.08 m
              (the same raster), the kernel within the gate's MSE of the
              march on each map, and its composed-vs-standalone difference
@@ -245,6 +247,7 @@ PPO_MAP, PPO_ENVS, PPO_ITERS = "compact", 1024, 3  # examples/train_ppo.py
 PLAN_STEPS = 64             # batched pure-pursuit rollout steps
 CLOSED_LOOP_ATOL = 1e-6     # tests/test_planner.py::test_closed_loop_parity
 DR_TRACKS, DR_SEED, DR_ENVS = 16, 0, 4096  # examples/domain_randomization.py
+DR_BENCH_ENVS = 16384       # the benchmark's batch on the 16-track world
 DR_PPO_ITERS = 2            # timed PPO iterations on the world
 SOLO_ATOL = 0.08            # tests/test_multi_track.py: composed vs standalone
 TRACK_STEPS, CONFIG_STEPS = 500, 50  # waypoint_follow steps
@@ -885,8 +888,7 @@ def world_poses(world, sort):
     return torch.stack([s.x[..., 0], s.x[..., 1], s.x[..., 4]], -1)
 
 
-def multi_track_phase(world, tables, kernel_vs_plain, leak_beams, build,
-                      card_name):
+def multi_track_phase(world, tables, kernel_vs_plain, build, card_name):
     """The 16-track world and K1 on it (module docstring, phase 13)."""
     import f1tenth_gym_tpu_torch as P
     from f1tenth_gym_tpu_torch.ops import lidar as lidar_ops
@@ -899,14 +901,33 @@ def multi_track_phase(world, tables, kernel_vs_plain, leak_beams, build,
     m, dev = world.map_data, world.map_data.device
     flat = world_poses(world, "arc").reshape(-1, 3)
     k_c, k_f, stats = kernel_vs_plain(m, flat, "multi_track")
-    leaks = leak_beams(m, flat, k_c, k_f, "multi_track")
-    require(leaks <= LEAK_CAP * k_c.numel(),
-            f"multi_track: {leaks} leak beams in {k_c.numel()}")
+    n = flat.shape[0]
+    leaks = int((k_c[:n] != k_f[:n]).sum())
+    require(leaks == 0, f"multi_track: culled != full on {leaks} beams")
     full_share = {}
     for order in ("arc", "square", "none"):
         w = sk.prepare_map(world_poses(world, order).reshape(-1, 3), m,
                            tables, BEAMS, THETA_DIS)
         full_share[order] = float((w.bid == 0).double().mean())
+    # the benchmark's batch: its start grids (the same sampler) after the
+    # arc sort, culled against full on the card
+    from f1tenth_gym_tpu_torch.tracks.multi import multi_track_pose_sampler
+
+    poses = multi_track_pose_sampler(world.infos, device=dev)(
+        P.make_generator(dev, 7), (DR_BENCH_ENVS, AGENTS))
+    s = world.sort(P.init_state(poses, world.cfg))
+    bench = torch.stack([s.x[..., 0], s.x[..., 1], s.x[..., 4]],
+                        -1).reshape(-1, 3)
+    w_c = sk.prepare_map(bench, m, tables, BEAMS, THETA_DIS)
+    w_f = sk.prepare_map(bench, m, tables, BEAMS, THETA_DIS, culled=False)
+    b_leaks = int((sk.sweep(w_c) != sk.sweep(w_f)).sum())
+    require(b_leaks == 0,
+            f"multi_track: culled != full on {b_leaks} beams of the batch")
+    at_bench = dict(envs=DR_BENCH_ENVS, scans=bench.shape[0],
+                    culled_subgroup_share=float((w_c.bid > 0).double()
+                                                .mean()),
+                    mean_swept_rows=float(w_c.swept_rows().double().mean()),
+                    culled_ne_full_beams=b_leaks)
     # composed vs standalone, from racing-line poses of two tracks: the
     # march (the raster is the same, so the scans are: the JAX test's
     # claim and bar), and K1 in the world (culled) and on the track's own
@@ -955,7 +976,8 @@ def multi_track_phase(world, tables, kernel_vs_plain, leak_beams, build,
          eligible=list(m.cull_eligible.shape), build_seconds=build,
          world_seconds=world.build_seconds, scans=flat.shape[0],
          kernel_vs_plain=stats, culled_ne_full_beams=leaks,
-         full_table_share=full_share, composed_vs_standalone=solo,
+         full_table_share=full_share, benchmark_batch=at_bench,
+         composed_vs_standalone=solo,
          composed_vs_standalone_bar_m=SOLO_ATOL)
 
 
@@ -1734,7 +1756,7 @@ def run(world_build, sweep_packs):
             f"the world's pack build failed ({world_build.returncode})")
     build = json.loads(out.strip().splitlines()[-1])
     world = dr.make_world(DR_TRACKS, DR_ENVS, AGENTS, BEAMS, DR_SEED, dev)
-    multi_track_phase(world, tables, kernel_vs_plain, leak_beams, build,
+    multi_track_phase(world, tables, kernel_vs_plain, build,
                       card_name)
     k1_extra = domain_randomization_phase(world, tables, card_name)
     del world

@@ -1,8 +1,11 @@
 """Exact conservative per-tile segment-visibility culling for the scan engines.
 
 Port of ``f1tenth_gym_tpu/ops/culling.py``, whole; the pack format (v9
-``TileTables``, 8-row groups) is unchanged, so packs built by the two
-packages compare byte for byte.
+``TileTables``, 8-row groups) is unchanged, so packs built from no
+component seed or one compare byte for byte with the JAX package's. A
+list of seeds (a multi-track world's corridors) is the port's own: each
+seed's component gets an erosion certificate of its own
+(``_refine_components``).
 
 The LiDAR kernel (ops/scan_kernel.py) sweeps every wall segment for every
 beam. On corridor maps most segments are occluded by nearer walls from
@@ -274,7 +277,8 @@ def tile_visibility(
 #     a loop L, crossing from strictly-outside its polygon interior I(L) to
 #     strictly-inside crosses one of L's segments.
 #   * Fix an ELIGIBILITY raster E: free cells of one distinguished free
-#     component whose centers are provably clear of every segment. A loop
+#     component whose centers are provably clear of every segment (with
+#     several seeds, one certificate per component: _refine_components). A loop
 #     is usable as "type-out" if NO eligible cell is inside I(L) (then
 #     I(L) is virtual solid: an eligible p is outside, a deep point y is
 #     inside -> crossing), or "type-in" if ALL eligible cells are inside
@@ -347,9 +351,11 @@ def _reconstruct_loops(segs: np.ndarray):
 
 
 def _scanline_interior(loop_segs: np.ndarray, H: int, W: int,
-                       x0: float, y0: float, res: float) -> np.ndarray:
-    """Even-odd interior mask of one closed polyline, at cell centers."""
-    ys = y0 + (np.arange(H) + 0.5) * res
+                       x0: float, y0: float, res: float,
+                       r0: int = 0, c0: int = 0) -> np.ndarray:
+    """Even-odd interior mask of one closed polyline, at the centers of
+    the H x W raster cells from cell (r0, c0) on."""
+    ys = y0 + (np.arange(r0, r0 + H) + 0.5) * res
     diff = np.zeros((H, W + 1), np.int32)
     for ax, ay, bx, by in loop_segs:
         if ay == by:
@@ -361,7 +367,8 @@ def _scanline_interior(loop_segs: np.ndarray, H: int, W: int,
         t = (ys[rows] - ay) / (by - ay)
         xi = ax + t * (bx - ax)
         # cells whose CENTER x0 + (c + .5) res < xi get one crossing
-        ci = np.clip(np.ceil((xi - x0) / res - 0.5).astype(np.int64), 0, W)
+        ci = np.clip(np.ceil((xi - x0) / res - 0.5).astype(np.int64) - c0,
+                     0, W)
         np.add.at(diff[:, 0], rows, 1)
         np.add.at(diff, (rows, ci), -1)
     return (np.cumsum(diff[:, :W], axis=1) % 2).astype(bool)
@@ -381,6 +388,14 @@ def _rasterize_segments(segs: np.ndarray, H: int, W: int,
         ok = (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)
         mark[cy[ok], cx[ok]] = True
     return mark
+
+
+def _seed_points(component_seed) -> Optional[np.ndarray]:
+    """``component_seed`` as (n, 2) world (x, y) rows: None, one (x, y),
+    or a sequence of them."""
+    if component_seed is None:
+        return None
+    return np.asarray(component_seed, np.float64).reshape(-1, 2)
 
 
 def erosion_refine(
@@ -403,11 +418,14 @@ def erosion_refine(
     (j-major, from tile_visibility); bitmap: the loaded occupancy raster
     (0 = wall, >0 = free, already flipped to world orientation);
     component_seed: world (x, y) picking the distinguished free component
-    (default: the component with the most near-wall area — the corridor).
+    (default: the component with the most near-wall area — the corridor),
+    or a sequence of them: then each seed's component is certified on its
+    own (``_refine_components``), as a multi-track world's corridors are.
 
     Returns (vis', eligible) with vis' <= vis elementwise and eligible an
     (H, W) uint8 raster for the runtime gate, or (vis, None) when fusion
     is unavailable (rotated map origin, no closed loops, empty eligibility).
+    ``erosion_refine.components`` counts the components certified.
     """
     from scipy import ndimage
 
@@ -429,9 +447,15 @@ def erosion_refine(
     labels, nlab = ndimage.label(free)
     if nlab == 0:
         return vis, None
-    if component_seed is not None:
-        ci = int(np.floor((component_seed[0] - x0) / res))
-        ri = int(np.floor((component_seed[1] - y0) / res))
+    seeds = _seed_points(component_seed)
+    centers, r_i = _subcenters(nx, ny, x0t, y0t, tile_size, subcenters)
+    if seeds is not None and len(seeds) > 1:
+        return _refine_components(segs, vis, nx, ny, x0t, y0t, tile_size,
+                                  loops, free, labels, d_seg, seeds, centers,
+                                  r_i, x0, y0, res)
+    if seeds is not None:
+        ci = int(np.floor((seeds[0, 0] - x0) / res))
+        ri = int(np.floor((seeds[0, 1] - y0) / res))
         if not (0 <= ri < H and 0 <= ci < W) or labels[ri, ci] == 0:
             return vis, None
         lab = labels[ri, ci]
@@ -464,14 +488,24 @@ def erosion_refine(
              - _DEPTH_SLACK_CELLS) * res   # meters, conservative
     np.maximum(depth, 0.0, out=depth)
 
-    # --- per-(tile, subcenter, segment) piece construction
-    a = segs[:, 0:2]
-    b = segs[:, 2:4]
-    e = b - a
-    sc = subcenters
+    tt, kk = np.nonzero(vis)
+    if not len(tt):
+        return vis, None
+    blocked = _march_blocked(segs, tt, kk, centers, r_i, depth, x0, y0, res)
+    vis = vis.copy()
+    vis[tt[blocked], kk[blocked]] = False
+    erosion_refine.components += 1
+    return vis, eligible.astype(np.uint8)
+
+
+erosion_refine.components = 0
+
+
+def _subcenters(nx, ny, x0t, y0t, tile_size, sc):
+    """((T, sc*sc, 2) world centers of each tile's sc x sc subcells, the
+    subcell circumradius, grown as tile_visibility grows the tiles)."""
     sub = tile_size / sc
     r_i = sub * np.sqrt(2.0) / 2.0 + 2e-3 * np.sqrt(2.0)
-    # subcenter world coords per tile: (T, sc*sc, 2)
     ti = np.arange(nx) * tile_size + x0t
     tj = np.arange(ny) * tile_size + y0t
     cxg, cyg = np.meshgrid(ti, tj)            # (ny, nx)
@@ -479,11 +513,18 @@ def erosion_refine(
     ox, oy = np.meshgrid(offs, offs)
     centers = (np.stack([cxg, cyg], -1).reshape(-1, 1, 2)
                + np.stack([ox.ravel(), oy.ravel()], -1)[None])  # (T, S2, 2)
+    return centers, r_i
 
-    tt, kk = np.nonzero(vis)
-    if not len(tt):
-        return vis, None
-    S2 = sc * sc
+
+def _march_blocked(segs, tt, kk, centers, r_i, depth, x0, y0, res,
+                   r0: int = 0, c0: int = 0) -> np.ndarray:
+    """(M,) bool: candidate (tile tt, segment kk) is proven blocked from
+    every subcell of the tile by the virtual solid whose depth field (m)
+    is ``depth``, raster cells from (r0, c0) on (module comment above)."""
+    H, W = depth.shape
+    a = segs[:, 0:2]
+    e = segs[:, 2:4] - a
+    S2 = centers.shape[1]
     # flat (cand, subcenter) axis
     C = centers[tt]                            # (M, S2, 2)
     A_ = a[kk][:, None, :]
@@ -566,8 +607,8 @@ def erosion_refine(
                 break
             px = cxw[alive] + d * dirx[alive]
             py = cyw[alive] + d * diry[alive]
-            ci_ = np.floor((px - x0) / res).astype(np.int64)
-            ri_ = np.floor((py - y0) / res).astype(np.int64)
+            ci_ = np.floor((px - x0) / res).astype(np.int64) - c0
+            ri_ = np.floor((py - y0) / res).astype(np.int64) - r0
             inb = (ci_ >= 0) & (ci_ < W) & (ri_ >= 0) & (ri_ < H)
             dep = np.where(inb, depth[np.clip(ri_, 0, H - 1),
                                       np.clip(ci_, 0, W - 1)], 0.0)
@@ -580,10 +621,174 @@ def erosion_refine(
         np.logical_and.at(good, owner, piece_blocked)
         blocked_cs[pid] = good[pid]
 
-    blocked = blocked_cs.reshape(-1, S2).all(-1)   # all subcenters
-    vis = vis.copy()
-    vis[tt[blocked], kk[blocked]] = False
-    return vis, eligible.astype(np.uint8)
+    return blocked_cs.reshape(-1, S2).all(-1)   # all subcenters
+
+
+def _cell_box(pts: np.ndarray, x0: float, y0: float, res: float, H: int,
+              W: int):
+    """(r0, r1, c0, c1): the raster cells whose centers may lie in the
+    bounding box of the (n, 2) world points, clipped to the raster."""
+    c0 = int(np.floor((pts[:, 0].min() - x0) / res)) - 1
+    c1 = int(np.floor((pts[:, 0].max() - x0) / res)) + 2
+    r0 = int(np.floor((pts[:, 1].min() - y0) / res)) - 1
+    r1 = int(np.floor((pts[:, 1].max() - y0) / res)) + 2
+    return max(r0, 0), min(r1, H), max(c0, 0), min(c1, W)
+
+
+def _touched_tiles(el: np.ndarray, r0: int, c0: int, x0: float, y0: float,
+                   res: float, nx: int, ny: int, x0t: float, y0t: float,
+                   tile_size: float) -> np.ndarray:
+    """(T,) bool: the tiles whose squares, grown as tile_visibility grows
+    them, meet an eligible cell of ``el`` (raster cells from (r0, c0) on)
+    grown by 1 mm: the tiles the kernel may assign a scan from such a
+    cell to, whatever the f32 rounding of its pose."""
+    rr, cc = np.nonzero(el)
+    slack = 2e-3 + 1e-3
+    xa = x0 + (cc + c0) * res
+    ya = y0 + (rr + r0) * res
+    touched = np.zeros((ny, nx), bool)
+    i_lo = np.floor((xa - slack - x0t) / tile_size).astype(np.int64)
+    i_hi = np.floor((xa + res + slack - x0t) / tile_size).astype(np.int64)
+    j_lo = np.floor((ya - slack - y0t) / tile_size).astype(np.int64)
+    j_hi = np.floor((ya + res + slack - y0t) / tile_size).astype(np.int64)
+    for i in (i_lo, i_hi):
+        for j in (j_lo, j_hi):
+            ok = (i >= 0) & (i < nx) & (j >= 0) & (j < ny)
+            touched[j[ok], i[ok]] = True
+    return touched.ravel()
+
+
+def _refine_components(segs, vis, nx, ny, x0t, y0t, tile_size, loops, free,
+                       labels, d_seg, seeds, centers, r_i, x0, y0, res):
+    """erosion_refine for several seeds: one certificate per component.
+
+    Component k's eligible cells E_k are its cells >= _ELIG_SEG_CELLS from
+    every segment; each loop is classified against E_k alone (type-out
+    when no cell of E_k lies inside, type-in when every one does), which
+    gives k's own virtual solid V_k: for a track's corridor, the exterior
+    of its outer wall, its infield and every other track. The march of a
+    (tile, segment) candidate runs under V_k for every k whose eligible
+    cells the tile may hold a scan from (``_touched_tiles``), and the
+    segment leaves the tile only when every such k proves it blocked: the
+    erosion lemma holds for the poses on k's side of V_k's loops, which
+    E_k's poses are. Tiles no component touches hold no eligible scan,
+    so no scan takes a window for its own tile there: their sets are left
+    empty, which keeps them from widening the windows they share with
+    touched tiles. The eligibility raster is the union of the certified
+    components' cells.
+
+    The kernel's f32 hit test can let a beam through the vertex shared by
+    two wall segments (both end tests fail). A certificate proves a
+    segment blocked by the wall's geometry, so such a beam can reach what
+    the certificate culled: it passes into the solid behind the vertex
+    and the full table's next hit is a face of that same wall body. So a
+    tile that keeps any face of a wall body keeps every face of it that
+    its umbra set holds (``_wall_faces``), and the culled scan meets the
+    full table's hit behind a leaking vertex too.
+
+    Each loop's even-odd interior is computed once, on the cells of its
+    bounding box; each component's depth field only on its own bounding
+    box grown by a tile, the march's reach and a margin (the crop's edge
+    counts as outside V_k, which only shortens the depths).
+    """
+    from scipy import ndimage
+
+    H, W = labels.shape
+    labs = []
+    for sx, sy in seeds:
+        ci = int(np.floor((sx - x0) / res))
+        ri = int(np.floor((sy - y0) / res))
+        if 0 <= ri < H and 0 <= ci < W and labels[ri, ci] != 0 \
+                and labels[ri, ci] not in labs:
+            labs.append(int(labels[ri, ci]))
+    boxes = ndimage.find_objects(labels)
+    interiors = []
+    for ix in loops:
+        ls = segs[ix]
+        r0, r1, c0, c1 = _cell_box(ls.reshape(-1, 2), x0, y0, res, H, W)
+        interiors.append((r0, c0, _scanline_interior(
+            ls, r1 - r0, c1 - c0, x0, y0, res, r0, c0)))
+    pad = int(np.ceil((tile_size + _MARCH_CAP_M + 1.0) / res))
+    eligible = np.zeros((H, W), bool)
+    n_touch = np.zeros(nx * ny, np.int32)
+    n_blocked = np.zeros(vis.shape, np.int32)
+    certified = 0
+    for lab in labs:
+        rs, cs = boxes[lab - 1]
+        R0, R1 = max(rs.start - pad, 0), min(rs.stop + pad, H)
+        C0, C1 = max(cs.start - pad, 0), min(cs.stop + pad, W)
+        el = ((labels[R0:R1, C0:C1] == lab)
+              & (d_seg[R0:R1, C0:C1] >= _ELIG_SEG_CELLS))
+        n_el = int(el.sum())
+        if not n_el:
+            continue
+        V = np.zeros(el.shape, bool)
+        for r0, c0, inside in interiors:
+            a0, a1 = max(r0, R0), min(r0 + inside.shape[0], R1)
+            b0, b1 = max(c0, C0), min(c0 + inside.shape[1], C1)
+            if a0 >= a1 or b0 >= b1:
+                continue                  # type-out, and outside the crop
+            part = inside[a0 - r0:a1 - r0, b0 - c0:b1 - c0]
+            win = (slice(a0 - R0, a1 - R0), slice(b0 - C0, b1 - C0))
+            n_in = int((el[win] & part).sum())
+            if n_in == 0:
+                V[win] |= part            # type-out: no eligible pose inside
+            elif n_in == n_el:
+                out = np.ones(el.shape, bool)   # type-in: the exterior
+                out[win] = ~part
+                V |= out
+        core = np.pad(V & (d_seg[R0:R1, C0:C1] >= _CORE_SEG_CELLS), 1)
+        depth = (ndimage.distance_transform_edt(core)[1:-1, 1:-1]
+                 - _DEPTH_SLACK_CELLS) * res   # meters, conservative
+        np.maximum(depth, 0.0, out=depth)
+        touched = _touched_tiles(el, R0, C0, x0, y0, res, nx, ny, x0t, y0t,
+                                 tile_size)
+        tt, kk = np.nonzero(vis & touched[:, None])
+        blocked = _march_blocked(segs, tt, kk, centers, r_i, depth, x0, y0,
+                                 res, R0, C0)
+        n_touch[touched] += 1
+        n_blocked[tt[blocked], kk[blocked]] += 1
+        eligible[R0:R1, C0:C1] |= el
+        certified += 1
+    if not certified:
+        return vis, None
+    erosion_refine.components += certified
+    kept = vis & (n_blocked < n_touch[:, None])
+    faces = _wall_faces(segs, free, x0, y0, res).astype(np.float32)
+    bodies = (kept.astype(np.float32) @ faces) > 0       # (T, n_bodies)
+    kept |= vis & ((bodies.astype(np.float32) @ faces.T) > 0)
+    return kept, eligible.astype(np.uint8)
+
+
+_FACE_CELLS = np.arange(1, 13) * 0.25   # _wall_faces' normal offsets
+
+
+def _wall_faces(segs, free, x0, y0, res) -> np.ndarray:
+    """(K, n_bodies) bool: segment k is a face of wall body b (a
+    connected component of wall cells, 8-connected) found on either side
+    of the segment within 3 cells, every quarter cell: the traced
+    contours lie within their simplification tolerance (1.5 cells) of the
+    raster boundary. A segment near two bodies counts as a face of both,
+    which only keeps more faces."""
+    from scipy import ndimage
+
+    body, n_bodies = ndimage.label(~free, structure=np.ones((3, 3), bool))
+    H, W = body.shape
+    a = segs[:, 0:2]
+    e = segs[:, 2:4] - a
+    nrm = np.stack([-e[:, 1], e[:, 0]], -1) / np.maximum(
+        np.hypot(e[:, 0], e[:, 1]), 1e-12)[:, None]
+    out = np.zeros((len(segs), n_bodies + 1), bool)
+    rows = np.arange(len(segs))
+    for f in (0.0, 0.25, 0.5, 0.75, 1.0):
+        p = a + f * e
+        for d in np.concatenate([-_FACE_CELLS, _FACE_CELLS]):
+            q = p + (d * res) * nrm
+            ci = np.floor((q[:, 0] - x0) / res).astype(np.int64)
+            ri = np.floor((q[:, 1] - y0) / res).astype(np.int64)
+            ok = (ci >= 0) & (ci < W) & (ri >= 0) & (ri < H)
+            out[rows[ok], body[ri[ok], ci[ok]]] = True
+    return out[:, 1:]
 
 
 def split_segments(segs: np.ndarray, max_len: float) -> np.ndarray:
@@ -645,7 +850,8 @@ def build_tile_tables(
     becomes eligibility-GATED: the returned ``eligible`` raster must be
     given to the scan so ineligible scan origins fall back to the full
     table. component_seed picks the distinguished free component (world
-    x, y); default auto-picks the corridor.
+    x, y), default the corridor; a sequence of (x, y) certifies each
+    seed's component on its own (erosion_refine).
 
     segments: (K, 4) wall segments (padding rows with coords >= 1e6 are
     dropped, matching build_seg_table). split_len (optional) splits targets
@@ -824,6 +1030,31 @@ def build_tile_tables(
     )
 
 
+def pack_cache_key(segments, max_range, tile_size, neighborhood,
+                   split_cap_groups, window_cap_groups, bitmap, resolution,
+                   origin, component_seed) -> str:
+    """The pack cache's key of build_tile_tables_cached's arguments. A
+    list of seeds is hashed only when it holds more than one, so a map
+    built from no seed or one keeps the key it has always had."""
+    segs = np.ascontiguousarray(np.asarray(segments, np.float64))
+    h = hashlib.sha1(b"tile-tables-v10")  # bump on algorithm changes
+    h.update(segs.tobytes())
+    h.update(np.float64([max_range, tile_size, neighborhood,
+                         split_cap_groups,
+                         window_cap_groups or 0]).tobytes())
+    if bitmap is not None:
+        h.update(np.ascontiguousarray(bitmap, np.uint8).tobytes())
+        h.update(np.float64([resolution, *origin]).tobytes())
+        seeds = _seed_points(component_seed)
+        if seeds is not None and len(seeds) > 1:
+            h.update(b"component-seeds")
+            h.update(seeds.tobytes())
+        else:
+            h.update(np.float64((np.nan, np.nan) if seeds is None
+                                else seeds[0]).tobytes())
+    return h.hexdigest()[:16]
+
+
 def build_tile_tables_cached(
     segments: np.ndarray,
     max_range: float,
@@ -840,21 +1071,14 @@ def build_tile_tables_cached(
     """build_tile_tables with an npz disk cache.
 
     The umbra sweep is O(tiles x K^2) host work; per-map results are
-    immutable, so they are keyed by a hash of (segments, parameters) and
-    reused across processes. cache_dir=None means $F1TENTH_TORCH_CACHE, or
-    else ``f1tenth_gym_tpu_torch/_build/map_cache``.
+    immutable, so they are keyed by a hash of (segments, parameters)
+    (``pack_cache_key``) and reused across processes. cache_dir=None means
+    $F1TENTH_TORCH_CACHE, or else ``f1tenth_gym_tpu_torch/_build/map_cache``.
     """
     segs = np.ascontiguousarray(np.asarray(segments, np.float64))
-    h = hashlib.sha1(b"tile-tables-v10")  # bump on algorithm changes
-    h.update(segs.tobytes())
-    h.update(np.float64([max_range, tile_size, neighborhood,
-                         split_cap_groups,
-                         window_cap_groups or 0]).tobytes())
-    if bitmap is not None:
-        h.update(np.ascontiguousarray(bitmap, np.uint8).tobytes())
-        h.update(np.float64([resolution, *origin]).tobytes())
-        h.update(np.float64(component_seed or (np.nan, np.nan)).tobytes())
-    key = h.hexdigest()[:16]
+    key = pack_cache_key(segs, max_range, tile_size, neighborhood,
+                         split_cap_groups, window_cap_groups, bitmap,
+                         resolution, origin, component_seed)
     cache_dir = cache_dir or os.environ.get(
         "F1TENTH_TORCH_CACHE",
         os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(

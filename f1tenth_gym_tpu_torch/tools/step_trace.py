@@ -10,7 +10,10 @@ has no profiler range of its own); then the port's spans
 (``utils/profiling.annotate``) a step: calls, host ms, host self ms, the
 card's time in the kernels each span launched (from the profile, its
 child spans' kernels included) and, for spans that record it, the extent
-on the card's timeline.
+on the card's timeline. After the profile it prints where K1's scans
+went at the traced stretch's last states (outside the profile: no launch
+or sync is added to the steps): the share of its 8-scan subgroups that
+took a culled window and the mean table rows a scan sweeps.
 
     python -m f1tenth_gym_tpu_torch.tools.step_trace single  # bench racing step
     python -m f1tenth_gym_tpu_torch.tools.step_trace multi   # 16-track domain-rand step
@@ -43,15 +46,16 @@ from f1tenth_gym_tpu_torch.utils import cuda_build, profiling
 
 
 def build_single(envs: int, num_beams: int, device=None):
-    """(step, states, map) of the bench racing step."""
+    """(step, states, map, tables) of the bench racing step."""
     m, tables, poses = common.bench_workload(1.25, envs, num_beams, device)
     states, step, _ = common.racing_step(m, tables, poses, eager=True)
-    return step, states, m
+    return step, states, m, tables
 
 
 def build_multi(envs: int, num_beams: int, tracks: int = 16, seed: int = 0,
                 device=None):
-    """(step, states, map) of the domain-randomization world's step."""
+    """(step, states, map, tables) of the domain-randomization world's
+    step."""
     from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
 
     world = dr.make_world(tracks, envs, 2, num_beams, seed, device)
@@ -61,7 +65,23 @@ def build_multi(envs: int, num_beams: int, tracks: int = 16, seed: int = 0,
     def step(s):
         return world.step.eager(s, actions)[0]
 
-    return step, world.sort(world.states), world.map_data
+    return step, world.sort(world.states), world.map_data, world.tables
+
+
+def scan_windows(states, m, tables, num_beams: int) -> dict:
+    """Where K1's scans from ``states`` go: the share of its subgroups
+    that take a culled window (``bid > 0``) and the mean table rows a scan
+    sweeps (``SweepInputs.swept_rows``)."""
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+
+    x = states.x
+    yaw = x[..., 4]
+    pose = torch.stack([x[..., 0] + tables.lidar_dist * torch.cos(yaw),
+                        x[..., 1] + tables.lidar_dist * torch.sin(yaw),
+                        yaw], -1).reshape(-1, 3)
+    w = sk.prepare_map(pose, m, tables, num_beams, common.THETA_DIS)
+    return dict(culled_subgroup_share=float((w.bid > 0).double().mean()),
+                mean_swept_rows=float(w.swept_rows().double().mean()))
 
 
 def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
@@ -72,16 +92,17 @@ def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
     ``k3``), the ms and launches a step in the profile of each declared
     kernel the step launches; ``k1_wrapper_launches`` and
     ``k3_wrapper_launches`` (the wrappers' counts over the profiled
-    steps) and ``spans`` (the port's spans a step: {name: {calls,
+    steps), ``scan_windows`` (``scan_windows`` at the last states) and
+    ``spans`` (the port's spans a step: {name: {calls,
     host_ms, host_self_ms, extent_ms, kernel_ms}})."""
     from f1tenth_gym_tpu_torch.ops import opp_clip_kernel as oc
     from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
 
     dev = resolve_device(device)
     if kind == "single":
-        step, s, _ = build_single(envs, num_beams, dev)
+        step, s, m, tables = build_single(envs, num_beams, dev)
     elif kind == "multi":
-        step, s, _ = build_multi(envs, num_beams, tracks, seed, dev)
+        step, s, m, tables = build_multi(envs, num_beams, tracks, seed, dev)
     else:
         raise ValueError(f"unknown workload {kind!r}: 'single' or 'multi'")
     s = step(s)   # warm-up
@@ -118,6 +139,7 @@ def trace(kind: str = "single", envs: int = 4096, steps: int = 8,
                 device=common.device_name(dev), **t, **kernels,
                 k1_wrapper_launches=sk.sweep.launches - before,
                 k3_wrapper_launches=oc.opp_clip.launches - before_k3,
+                scan_windows=scan_windows(box[0], m, tables, num_beams),
                 spans=spans)
 
 
@@ -164,6 +186,10 @@ def main(argv=None):
               args.seed, args.device)
     common.print_top(f"{args.kind}: {r['steps']} steps on {r['device']}", r)
     print_spans(r["spans"])
+    sw = r["scan_windows"]
+    print(f"  K1 subgroups on a culled window: "
+          f"{sw['culled_subgroup_share']:.4f}; table rows a scan sweeps: "
+          f"{sw['mean_swept_rows']:.1f}", flush=True)
     print(json.dumps({k: v for k, v in r.items()
                       if k not in ("by_name", "spans")}), flush=True)
     return r

@@ -7,11 +7,14 @@ one culling pack) serves them all: each track's closed outer wall occludes
 every other track, so a scan inside track k equals the scan on track k's
 standalone map. Envs assigned to different tracks then step in one batch.
 
-The pack's windows are local to each track, but its erosion gate (the
-eligibility raster) certifies only one free component, the one with the
-most near-wall cells, which in a composed world is the open space around
-the tracks: every subgroup of scans on a track then sweeps the full
-table. The JAX package builds the same pack, byte for byte.
+The pack's windows are local to each track, and its erosion gate (the
+eligibility raster) certifies each track's corridor with a certificate of
+its own: ``multi_track_map_data`` seeds the culling with every track's
+start point, so the scans on a track take their windows and sweep about
+that track's walls, not the world's whole table. Here the port parts from
+the JAX package on purpose: its gate certifies one free component, the
+open space around the tracks, so every scan on a track sweeps the full
+table there.
 
 ``multi_track_pose_sampler`` spawns each env's agents as a start grid on
 its track's racing line; ``multi_track_locality_sort`` orders the env
@@ -62,7 +65,9 @@ def multi_track_map_data(
     ``trackgen.generate_centerline``. The culling defaults are the JAX
     package's: neighborhood 2 (a track holds few envs, so a subgroup needs
     a wider window than on one dense map) and windows capped at 64 groups
-    (every block is padded to the pack's tallest).
+    (every block is padded to the pack's tallest). Each track's start
+    point seeds the culling, so each corridor gets its own erosion
+    certificate (``ops/culling.py::erosion_refine``).
     """
     from f1tenth_gym_tpu_torch.tracks.trackgen import (
         _curvature,
@@ -122,7 +127,9 @@ def multi_track_map_data(
         extract_segments=extract_segments, tile_culling=tile_culling,
         culling_neighborhood=culling_neighborhood,
         culling_tile_size=culling_tile_size,
-        culling_window_cap=culling_window_cap, device=device)
+        culling_window_cap=culling_window_cap,
+        culling_component_seed=[i.start_pose[:2] for i in infos],
+        device=device)
     return md, infos
 
 
@@ -185,10 +192,10 @@ def multi_track_locality_sort(map_data: MapData, infos: List[TrackInfo]):
 
     Square spatial blocks (``parallel.vector.sort_envs_for_locality``)
     rarely put 8 scans of a sparse multi-track batch into one culling
-    window; arc position along each track does (the erosion gate then
-    decides whether the window is used, see the module docstring). The
-    keys are computed in float32 and the sort is stable, as in the JAX
-    package.
+    window; arc position along each track does, and since every corridor
+    is certified (see the module docstring) the subgroups then take their
+    windows. The keys are computed in float32 and the sort is stable, as
+    in the JAX package.
     """
     dev = map_data.device
     n = len(infos)

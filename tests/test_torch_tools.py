@@ -170,6 +170,11 @@ def test_step_trace_on_cpu(monkeypatch, capsys, kind):
     # no CUDA kernel on the CPU: the plain sweep runs, uncounted
     assert r["k1"] == dict(ms_per_step=0, calls_per_step=0)
     assert r["k1_wrapper_launches"] == 0
+    # where K1's scans went, printed after the spans
+    sw = r["scan_windows"]
+    assert 0.0 <= sw["culled_subgroup_share"] <= 1.0
+    assert sw["mean_swept_rows"] > 0
+    assert "K1 subgroups on a culled window" in out
 
 
 def test_ppo_profile_world1_on_cpu():
