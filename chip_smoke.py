@@ -117,9 +117,12 @@ at most TRACE_STEPS steps, as a longer one loses records.)
              dones, then 256 traced steps with one scan-kernel launch a step
              and none of the overlay, scans in range, the distance from the
              start grid per track; the kernel's time at this shape beside
-             its bound; then its --train learner: one warm-up and two timed
-             PPO iterations with finite metrics, and a traced one with 32
-             launches;
+             its bound; then its --train learner (the arc sort before
+             each rollout): one warm-up and two timed PPO iterations with
+             finite metrics, and a traced one with 32 launches; then K1 in
+             that learner with its sort and without (full-table share at a
+             rollout's first step, K1's ms a step over a profiled
+             iteration);
 15. trackgen — examples/waypoint_follow on the track of seed 9 written by
              save_track (F110Env "auto", so the kernel): 500 pure-pursuit
              steps without a collision; then on
@@ -1051,12 +1054,50 @@ def domain_randomization_phase(world, tables, card_name):
     emit("domain_randomization_ppo", card=card_name, envs=DR_ENVS,
          agents=AGENTS, rollout_steps=T, iterations=iters,
          kernel_launches=ppo_launches,
-         scans=scans_in_range(ts.env_states, tables, "dr ppo"))
+         scans=scans_in_range(ts.env_states, tables, "dr ppo"),
+         sort=learner_sort_effect(world, T))
     return dict(multi_track_launches=launches, multi_track_ms=t_k["ms"],
                 multi_track_plain_ms=plain_ms,
                 multi_track_bound_ms=bound["bound_ms"],
                 multi_track_bound_by=bound["bound_by"],
                 multi_track_ppo_launches=ppo_launches)
+
+
+def learner_sort_effect(world, T):
+    """K1 in the example's learner with its sort and without: each from
+    the reset envs, one warm-up iteration, then the share of kernel
+    subgroups on the full table at the next rollout's first step and K1's
+    device ms a step over that iteration, profiled."""
+    from f1tenth_gym_tpu_torch.examples import domain_randomization as dr
+    from f1tenth_gym_tpu_torch.ops import scan_kernel as sk
+    from f1tenth_gym_tpu_torch.tools.common import (device_time_by_name,
+                                                    named, profile)
+
+    out = {}
+    for label, sorted_ in (("sorted", True), ("unsorted", False)):
+        ppo, ts = dr.make_learner(world)
+        if not sorted_:
+            ppo.sort_fn = None
+        ts, _ = ppo.train_step(ts)
+        s = world.sort(ts.env_states) if sorted_ else ts.env_states
+        x = s.x
+        w = sk.prepare_map(torch.stack([x[..., 0], x[..., 1], x[..., 4]],
+                                       -1).reshape(-1, 3), world.map_data,
+                           world.tables, BEAMS, THETA_DIS)
+        box = [ts]
+
+        def iteration():
+            box[0], _ = ppo.train_step(box[0])
+
+        prof = profile(iteration, 1, world.map_data.device)
+        k1 = named(device_time_by_name(prof, T)["by_name"],
+                   sk.KERNEL.trace_name)
+        out[label] = dict(full_table_share=float((w.bid == 0).double()
+                                                 .mean()),
+                          k1_ms_per_step=k1["ms_per_step"],
+                          k1_calls_per_step=k1["calls_per_step"])
+        del ppo, ts, box
+    return out
 
 
 def trackgen_phase(dev, card_name):

@@ -5,9 +5,9 @@ into one world map (``tracks/multi.py``); envs are assigned to tracks in
 contiguous blocks of the batch and start on a start grid on their track's
 racing line; each step sweeps every scan with the scan kernel on the
 world's culling pack, and the batch is re-sorted by arc position every 32
-steps so that a kernel subgroup stays in one culling window (on this
-world's pack the erosion gate sends every subgroup to the full table: see
-``tracks/multi.py``).
+steps so that a kernel subgroup stays in one culling window (each track's
+corridor is certified on its own: see ``tracks/multi.py``). ``--train``
+sorts the same way once an iteration, before each 32-step rollout.
 
     python -m f1tenth_gym_tpu_torch.examples.domain_randomization             # rollout
     python -m f1tenth_gym_tpu_torch.examples.domain_randomization --train --iters 40
@@ -124,13 +124,14 @@ def progress_per_track(s: SimState, infos: List[TrackInfo]) -> List[float]:
 def make_learner(world: World):
     """PPO across all tracks on the world's auto-reset step:
     ``PPOConfig(rollout_steps=32, obs_beams=64)``, the net from generator
-    seed 2. Returns (ppo, ts)."""
+    seed 2, the batch re-sorted by ``world.sort`` before every rollout (a
+    rollout is one SORT_PERIOD). Returns (ppo, ts)."""
     from f1tenth_gym_tpu_torch.parallel.ppo import PPO, PPOConfig
 
     dev = world.map_data.device
     ppo = PPO(world.params, world.map_data, world.tables, world.cfg, 0.01,
-              PPOConfig(rollout_steps=32, obs_beams=64), step_fn=world.step,
-              device=dev)
+              PPOConfig(rollout_steps=SORT_PERIOD, obs_beams=64),
+              step_fn=world.step, device=dev, sort_fn=world.sort)
     return ppo, ppo.init(world.states, P.make_generator(dev, 2))
 
 

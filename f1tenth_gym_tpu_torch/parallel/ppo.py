@@ -62,6 +62,22 @@ generator (``TrainState.generator``); the env's scan noise from the step's
 own generator: ``make_autoreset_step``'s, or one that ``PPO`` owns when no
 ``step_fn`` is given. ``TrainState.env_generator`` is that generator, so
 that a checkpoint of the ``TrainState`` resumes bit for bit.
+
+``PPO(sort_fn=...)`` (states -> states, e.g. a locality sort) relabels the
+envs before each rollout, so that the scan kernel's subgroups share a
+culling window through the rollout; under a mesh each rank sorts its own
+rows. It draws nothing from either generator, and without it every result
+is the unsorted learner's, bit for bit.
+
+Spans (``utils/profiling.annotate``; off unless a profiler records):
+``ppo.iteration`` (top level, around ``train_step``) > ``ppo.sort``,
+``ppo.rollout`` > ``ppo.policy`` (featurize, forward, sample and scale: one
+a rollout step), then ``ppo.update`` > ``ppo.gae``, ``ppo.minibatch``
+(forward and backward), ``ppo.adam`` (``ClippedAdam.step``).
+``ppo.iteration``, ``ppo.rollout`` and ``ppo.update`` record their extent
+on the card. ``COUNTERS`` counts on the host: ``ppo.iterations``,
+``ppo.rollout.steps`` and ``ppo.update.samples`` (the rank's agent-samples
+through the forward and backward, summed over the epochs).
 """
 
 from __future__ import annotations
@@ -87,11 +103,16 @@ from f1tenth_gym_tpu_torch.parallel.sharding import (
 )
 from f1tenth_gym_tpu_torch.parallel.vector import batch_step, make_generator
 from f1tenth_gym_tpu_torch.state import MapData, ScanTables, SimState, VehicleParams
+from f1tenth_gym_tpu_torch.utils.profiling import annotate
 
 # flax's variance_scaling(..., "truncated_normal"): the std of a unit
 # normal truncated at +-2
 _TRUNC_STD = 0.87962566103423978
 _LOG_2PI = math.log(2.0 * np.pi)
+
+# the learner's counters (module docstring): host ints, never a sync
+COUNTERS = {"ppo.iterations": 0, "ppo.rollout.steps": 0,
+            "ppo.update.samples": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,26 +333,30 @@ class ClippedAdam:
 
     @torch.no_grad()
     def step(self):
-        grads = {k: p.grad for k, p in self.params.items()}
-        # optax's sum: in leaf order, each 0-d term promoting the total;
-        # the split parameters' part first, summed over 'model'
-        split = all_reduce_sum(sum(torch.sum(grads[k] * grads[k])
-                                   for k in self.split), self.model_group)
-        norm = torch.sqrt(split + sum(torch.sum(g * g) for k, g in
-                                      grads.items() if k not in self.split))
-        keep = norm < self.max_grad_norm
-        self.count += 1
-        n = int(self.count)
-        bc1 = 1.0 - self.b1 ** n
-        bc2 = 1.0 - self.b2 ** n
-        for k, p in self.params.items():
-            g = grads[k]
-            g = torch.where(keep, g, (g / norm.to(g.dtype)) * self.max_grad_norm)
-            mu = (1.0 - self.b1) * g + self.b1 * self.mu[k]
-            nu = (1.0 - self.b2) * (g ** 2) + self.b2 * self.nu[k]
-            self.mu[k], self.nu[k] = mu, nu
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_(update * -self.lr)
+        with annotate("ppo.adam"):
+            grads = {k: p.grad for k, p in self.params.items()}
+            # optax's sum: in leaf order, each 0-d term promoting the total;
+            # the split parameters' part first, summed over 'model'
+            split = all_reduce_sum(sum(torch.sum(grads[k] * grads[k])
+                                       for k in self.split),
+                                   self.model_group)
+            norm = torch.sqrt(split + sum(torch.sum(g * g) for k, g in
+                                          grads.items()
+                                          if k not in self.split))
+            keep = norm < self.max_grad_norm
+            self.count += 1
+            n = int(self.count)
+            bc1 = 1.0 - self.b1 ** n
+            bc2 = 1.0 - self.b2 ** n
+            for k, p in self.params.items():
+                g = grads[k]
+                g = torch.where(keep, g,
+                                (g / norm.to(g.dtype)) * self.max_grad_norm)
+                mu = (1.0 - self.b1) * g + self.b1 * self.mu[k]
+                nu = (1.0 - self.b2) * (g ** 2) + self.b2 * self.nu[k]
+                self.mu[k], self.nu[k] = mu, nu
+                update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                p.add_(update * -self.lr)
 
     def state_dict(self) -> Dict[str, object]:
         return {"count": self.count.clone(), "mu": dict(self.mu),
@@ -375,6 +400,7 @@ class PPO:
         step_fn: Optional[Callable] = None,  # e.g. make_autoreset_step's
         device=None,
         mesh=None,
+        sort_fn: Optional[Callable] = None,  # states -> states, each rollout
     ):
         if device is None and mesh is not None:
             device = local_device(mesh)
@@ -389,6 +415,7 @@ class PPO:
         self.timestep = timestep
         self.pc = ppo_cfg
         self.step_fn = step_fn
+        self.sort_fn = sort_fn
         if step_fn is None:
             self.env_generator = make_generator(
                 self.device, DEFAULT_SEED + self._env_index)
@@ -459,18 +486,25 @@ class PPO:
         states = ts.env_states
         out = {k: [] for k in ("feats", "raw", "logp", "value", "reward",
                                "done")}
-        for _ in range(pc.rollout_steps):
-            feats = featurize(self._obs_of(states), self.tables, pc.obs_beams)
-            raw, logp, value = self._policy(ts.net, ts.generator, feats)
-            actions = scale_actions(raw, self.params)
-            states, _, _, done, _ = self._step(states, actions)
-            reward = self._shaped_reward(states, done)
-            for k, v in (("feats", feats), ("raw", raw), ("logp", logp),
-                         ("value", value), ("reward", reward), ("done", done)):
-                out[k].append(v)
-        traj = {k: torch.stack(v) for k, v in out.items()}
-        feats_T = featurize(self._obs_of(states), self.tables, pc.obs_beams)
-        _, _, value_T = ts.net(feats_T)
+        with annotate("ppo.rollout", extent=True):
+            for _ in range(pc.rollout_steps):
+                with annotate("ppo.policy"):
+                    feats = featurize(self._obs_of(states), self.tables,
+                                      pc.obs_beams)
+                    raw, logp, value = self._policy(ts.net, ts.generator,
+                                                    feats)
+                    actions = scale_actions(raw, self.params)
+                states, _, _, done, _ = self._step(states, actions)
+                reward = self._shaped_reward(states, done)
+                for k, v in (("feats", feats), ("raw", raw), ("logp", logp),
+                             ("value", value), ("reward", reward),
+                             ("done", done)):
+                    out[k].append(v)
+            traj = {k: torch.stack(v) for k, v in out.items()}
+            feats_T = featurize(self._obs_of(states), self.tables,
+                                pc.obs_beams)
+            _, _, value_T = ts.net(feats_T)
+        COUNTERS["ppo.rollout.steps"] += pc.rollout_steps
         return dataclasses.replace(ts, env_states=states), traj, value_T
 
     # ------------------------------------------------------------- losses
@@ -538,43 +572,57 @@ class PPO:
     def update(self, ts: TrainState, traj, value_T):
         """GAE, then epochs x minibatch clipped-PPO updates of ``ts.net``
         (in place). Returns (ts, metrics) with 0-d tensor metrics."""
-        pc = self.pc
-        advs, returns = self._gae(traj, value_T)
-        advs = self._normalize(advs)
+        with annotate("ppo.update", extent=True):
+            pc = self.pc
+            with annotate("ppo.gae"):
+                advs, returns = self._gae(traj, value_T)
+            advs = self._normalize(advs)
 
-        T, E, A = advs.shape
-        flat = dict(
-            feats=traj["feats"].reshape(T * E, *traj["feats"].shape[2:]),
-            raw=traj["raw"].reshape(T * E, *traj["raw"].shape[2:]),
-            logp=traj["logp"].reshape(T * E, *traj["logp"].shape[2:]),
-            adv=advs.reshape(T * E, A),
-            ret=returns.reshape(T * E, A),
-        )
-        n_all = T * E * self._env_count
-        mb_size = n_all // pc.minibatches
-        epoch_losses = []
-        for _ in range(pc.epochs):
-            perm = torch.randperm(n_all, generator=ts.generator,
-                                  device=advs.device)
-            losses = []
-            for i in range(pc.minibatches):
-                take = self._own(perm[i * mb_size:(i + 1) * mb_size], E)
-                batch = {k: v[take] for k, v in flat.items()}
-                ts.opt.zero_grad()
-                loss, _ = self._loss_part(ts.net, batch, mb_size)
-                loss.backward()
-                ts.opt.step()
-                losses.append(loss.detach())
-            epoch_losses.append(torch.stack(losses))
-        # the ranks' parts of each minibatch's loss sum to its loss
-        losses = all_reduce_sum(torch.stack(epoch_losses), self._env_group)
-        metrics = dict(
-            loss=torch.stack([row.mean() for row in losses]).mean(),
-            mean_reward=self._mean(traj["reward"]),
-            crash_rate=self._mean(traj["done"].to(traj["reward"].dtype)),
-        )
-        return ts, metrics
+            T, E, A = advs.shape
+            flat = dict(
+                feats=traj["feats"].reshape(T * E, *traj["feats"].shape[2:]),
+                raw=traj["raw"].reshape(T * E, *traj["raw"].shape[2:]),
+                logp=traj["logp"].reshape(T * E, *traj["logp"].shape[2:]),
+                adv=advs.reshape(T * E, A),
+                ret=returns.reshape(T * E, A),
+            )
+            n_all = T * E * self._env_count
+            mb_size = n_all // pc.minibatches
+            epoch_losses = []
+            for _ in range(pc.epochs):
+                perm = torch.randperm(n_all, generator=ts.generator,
+                                      device=advs.device)
+                losses = []
+                for i in range(pc.minibatches):
+                    take = self._own(perm[i * mb_size:(i + 1) * mb_size], E)
+                    batch = {k: v[take] for k, v in flat.items()}
+                    ts.opt.zero_grad()
+                    with annotate("ppo.minibatch"):
+                        loss, _ = self._loss_part(ts.net, batch, mb_size)
+                        loss.backward()
+                    COUNTERS["ppo.update.samples"] += take.numel() * A
+                    ts.opt.step()
+                    losses.append(loss.detach())
+                epoch_losses.append(torch.stack(losses))
+            # the ranks' parts of each minibatch's loss sum to its loss
+            losses = all_reduce_sum(torch.stack(epoch_losses),
+                                    self._env_group)
+            metrics = dict(
+                loss=torch.stack([row.mean() for row in losses]).mean(),
+                mean_reward=self._mean(traj["reward"]),
+                crash_rate=self._mean(
+                    traj["done"].to(traj["reward"].dtype)),
+            )
+            return ts, metrics
 
     def train_step(self, ts: TrainState):
-        """One PPO iteration: rollout, then ``update``."""
-        return self.update(*self.rollout(ts))
+        """One PPO iteration: the sort (with ``sort_fn``), the rollout,
+        then ``update``."""
+        with annotate("ppo.iteration", extent=True):
+            if self.sort_fn is not None:
+                with annotate("ppo.sort"):
+                    ts = dataclasses.replace(
+                        ts, env_states=self.sort_fn(ts.env_states))
+            out = self.update(*self.rollout(ts))
+        COUNTERS["ppo.iterations"] += 1
+        return out
